@@ -1,0 +1,367 @@
+"""Torch backend — device-resident binding tables on ``torch.Tensor``s.
+
+Registers the ``"torch"`` PhysicalSpec (cuda) and, on request, one spec per
+other device (``torch_spec("cpu")`` -> ``"torch[cpu]"``), so plan caches and
+the per-store operator cache never mix devices.  It is the twin of the
+reference's ``JaxOperators`` (``repro/graphdb/jax_backend.py``) without
+fused chains.  OperatorSet v2 (DESIGN.md §7): every operator takes and
+returns tensors on the set's device, so the binding table stays there
+across all plan steps — pattern loop and relational tail — and crosses to
+the host once, at delivery (``to_host``).
+
+- ``expand``    -> ``torchops.csr_expand_flat``: a flat row-major CSR
+  gather sized exactly by the degree sum, which the ``max_out`` guard
+  checks before anything is allocated.
+- ``intersect`` -> the hand-written CUDA ``wcoj_intersect`` kernel: one
+  launch per call, a per-probe binary search over the CSR itself for every
+  degree (no padded-ELL tiles, no slabs, no split by degree).  On a CPU
+  device the wrapper runs the kernel's plain version.
+- relational tail: ``join`` is a sort-merge join, ``group_reduce`` a
+  sorted-run reduction (int64 SUM, float64 AVG), ``combine_keys`` dense
+  lexicographic ranks — the same row order as the numpy reference backend.
+
+Staging contracts: vertex ids, CSR offsets and property columns live on
+the device as int32 (guarded at construction and at every upload);
+``to_host`` widens int32 to int64 (the INT32_MIN missing-property sentinel
+to INT64_MIN) and float32 to float64.  ``transfer_stats`` records every
+data movement; control-plane scalar syncs (row counts, blow-up guards) are
+not data transfers and are not recorded.  ``kernel_stats`` records one
+``dispatch:<kind>`` event per compound operator call.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.physical_spec import (CostParams, OperatorSet,
+                                            PhysicalSpec, register_spec)
+from repro_torch.graphdb import torchops
+from repro_torch.kernels.wcoj_intersect.ops import wcoj_intersect
+
+_I32_MIN = np.iinfo(np.int32).min
+_I32_MAX = np.iinfo(np.int32).max
+_I64_MIN = np.iinfo(np.int64).min
+
+_AGGREGATES = ("COUNT", "SUM", "AVG", "MIN", "MAX")
+
+
+def _require_device(device: torch.device):
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the torch backend runs on cuda, and no CUDA device is "
+            "available; pass device='cpu' to run the plain CPU versions")
+
+
+class TorchOperators(OperatorSet):
+    """Device-resident operator set: id columns are int32 tensors."""
+
+    name = "torch"
+    supports_chains = False
+    compiled = False
+    index_dtype = torch.int32
+
+    def __init__(self, store, device: str | torch.device = "cuda"):
+        super().__init__(store)
+        self.device = torch.device(device)
+        _require_device(self.device)
+        if max(store.n_vertices, store.n_edges) >= _I32_MAX:
+            raise ValueError(
+                "torch backend stages vertex ids and CSR offsets through "
+                f"int32; store has {store.n_vertices} vertices / "
+                f"{store.n_edges} edges")
+        self._dev = {}    # id(csr) -> (csr, indptr, indices, pos | None)
+        self._props = {}  # ("v"|"e", prop) -> device property column(s)
+        self._z32 = torch.zeros(0, dtype=torch.int32, device=self.device)
+
+    def block_ready(self, arrays):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return arrays
+
+    # ------------------------------------------------------------ transfers
+    def _stage(self, a: np.ndarray) -> torch.Tensor:
+        if a.dtype.kind in "iu":
+            if a.size and (a.max() > _I32_MAX or a.min() < _I32_MIN):
+                raise ValueError("column exceeds the torch backend's int32 "
+                                 "staging envelope")
+            a = a.astype(np.int32)
+        self.transfer_stats.record("h2d", a.size)
+        return torch.as_tensor(a).to(self.device)
+
+    def asarray(self, values):
+        if isinstance(values, torch.Tensor):
+            if values.device != self.device:
+                self.transfer_stats.record("h2d", values.numel())
+                return values.to(self.device)
+            return values
+        return self._stage(np.asarray(values))
+
+    def _array_to_host(self, a) -> np.ndarray:
+        if not isinstance(a, torch.Tensor):
+            return np.asarray(a)
+        self.transfer_stats.record("d2h", a.numel())
+        h = a.detach().cpu().numpy()
+        if h.dtype == np.int32:
+            h64 = h.astype(np.int64)
+            h64[h64 == _I32_MIN] = _I64_MIN   # missing-prop sentinel widens
+            return h64
+        if h.dtype == np.float32:
+            return h.astype(np.float64)
+        # a CPU tensor shares its memory with .numpy(): hand out a copy
+        return h.copy() if a.device.type == "cpu" else h
+
+    def _col(self, a) -> torch.Tensor:
+        return a if isinstance(a, torch.Tensor) else self.asarray(a)
+
+    # ------------------------------------------------------ array primitives
+    def take(self, a, idx):
+        if isinstance(a, np.ndarray):
+            # host-only column (string literals): gather on the host
+            return a[self._array_to_host(idx)]
+        return torch.index_select(self._col(a), 0, self._col(idx))
+
+    def mask(self, a, m):
+        return self._col(a)[self._col(m)]
+
+    def concat(self, parts: list):
+        if not parts:
+            return self._z32
+        if len(parts) == 1:
+            return self._col(parts[0])
+        return torch.cat([self._col(p) for p in parts])
+
+    def nonzero(self, m):
+        m = self._col(m)
+        if m.dtype != torch.bool:
+            m = m != 0
+        self.kernel_stats.record("dispatch", "nonzero")
+        return torch.nonzero(m).flatten().to(torch.int32)
+
+    def full(self, n: int, value):
+        if isinstance(value, (bool, np.bool_)):
+            dt = torch.bool
+        elif isinstance(value, (int, np.integer)):
+            dt = (torch.int32 if _I32_MIN <= int(value) <= _I32_MAX
+                  else torch.int64)
+        else:
+            dt = torch.float64
+        return torch.full((int(n),), value, dtype=dt, device=self.device)
+
+    def arange(self, n: int):
+        return torch.arange(int(n), dtype=torch.int32, device=self.device)
+
+    def isin(self, a, values):
+        vals = np.asarray(list(values), dtype=np.int64)
+        # values outside the int32 envelope cannot match any staged column
+        vals = vals[(vals <= _I32_MAX) & (vals > _I32_MIN)]
+        return torch.isin(self._col(a), self.asarray(vals))
+
+    def searchsorted(self, sorted_arr, values, side: str = "left"):
+        s, v = self._col(sorted_arr), self._col(values)
+        if s.dtype != v.dtype:
+            dt = torch.promote_types(s.dtype, v.dtype)
+            s, v = s.to(dt), v.to(dt)
+        return torch.searchsorted(s, v, right=side == "right",
+                                  out_int32=True)
+
+    def where(self, cond, a, b):
+        return torch.where(self._col(cond), self._col(a), self._col(b))
+
+    def lexsort(self, cols: list):
+        return torchops.lexsort([self._col(c) for c in cols]).to(torch.int32)
+
+    def distinct_indices(self, key):
+        key = self._col(key)
+        if key.shape[0] == 0:
+            return self._z32
+        self.kernel_stats.record("dispatch", "distinct")
+        order = torchops.stable_argsort(key)
+        sk = key[order]
+        flag = torch.ones(sk.shape[0], dtype=torch.bool, device=sk.device)
+        flag[1:] = sk[1:] != sk[:-1]
+        # the stable sort puts each key's minimal row first in its run
+        return torch.sort(order[flag]).values.to(torch.int32)
+
+    # ------------------------------------------------------ property gathers
+    def _vprop_dev(self, prop: str):
+        """One device column per vertex property, indexed by global id
+        (types without the property hold the int32 missing sentinel), so a
+        property gather is a single device take."""
+        key = ("v", prop)
+        ent = self._props.get(key)
+        if ent is None:
+            st = self.store
+            col = np.full(st.n_vertices, _I32_MIN, dtype=np.int64)
+            for t in st._sorted_types():
+                tc = st.v_props.get(t, {}).get(prop)
+                if tc is None or tc.shape[0] == 0:
+                    continue
+                off = st.v_offset[t]
+                col[off:off + tc.shape[0]] = tc
+            ent = self._props[key] = self._stage(col)
+        return ent
+
+    def _eprop_dev(self, prop: str):
+        """Per-triple edge-property columns concatenated on the device, plus
+        per-triple offsets: ``col[offset[triple_id] + pos]``."""
+        key = ("e", prop)
+        ent = self._props.get(key)
+        if ent is None:
+            st = self.store
+            offsets, parts, off = [], [], 0
+            for t in sorted(st.out_csr, key=repr):
+                tc = st.e_props.get(t, {}).get(prop)
+                n = st.out_csr[t].nnz
+                offsets.append(off)
+                part = np.full(n, _I32_MIN, dtype=np.int64)
+                if tc is not None and tc.shape[0]:
+                    part[:tc.shape[0]] = tc
+                parts.append(part)
+                off += n
+            flat = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+            ent = self._props[key] = (
+                self._stage(np.asarray(offsets, dtype=np.int64)),
+                self._stage(flat))
+        return ent
+
+    def vertex_prop(self, ids, prop: str):
+        return self.take(self._vprop_dev(prop), self._col(ids))
+
+    def edge_prop(self, triple_ids, pos, prop: str):
+        pos = self._col(pos)
+        offsets, flat = self._eprop_dev(prop)
+        if flat.shape[0] == 0:
+            return torch.full(pos.shape, _I32_MIN, dtype=torch.int32,
+                              device=self.device)
+        return self.take(flat, self.take(offsets, self._col(triple_ids))
+                         + pos)
+
+    # --------------------------------------------------------------- pattern
+    def _csr_dev(self, csr):
+        """Device twin (int32) of a host CSR, keyed by object identity; the
+        stored host reference guards against address reuse."""
+        ent = self._dev.get(id(csr))
+        if ent is None or ent[0] is not csr:
+            ent = self._dev[id(csr)] = (
+                csr, self._stage(csr.indptr), self._stage(csr.indices),
+                self._stage(csr.pos) if csr.pos is not None else None)
+        return ent[1:]
+
+    def scan(self, lo: int, hi: int):
+        return torch.arange(int(lo), int(hi), dtype=torch.int32,
+                            device=self.device)
+
+    def expand(self, csr, rows_local, max_out=None):
+        """Flat row-major CSR gather (the host path's exact rows).  The
+        degree sum is read back first, so the blow-up guard raises before
+        any output is allocated."""
+        rows = self._col(rows_local)
+        if rows.shape[0] == 0:
+            return self._z32, self._z32, self._z32
+        indptr, indices, pos = self._csr_dev(csr)
+        total = torchops.csr_expand_total(indptr, rows)  # control-plane sync
+        if max_out is not None and total > max_out:
+            raise RuntimeError(f"intermediate blow-up: expansion would "
+                               f"produce {total} rows > cap {max_out}")
+        if total > _I32_MAX:
+            raise RuntimeError(f"intermediate blow-up: expansion would "
+                               f"produce {total} rows (beyond the int32 "
+                               f"staging envelope)")
+        self.kernel_stats.record("dispatch", "expand")
+        if total == 0:
+            return self._z32, self._z32, self._z32
+        return torchops.csr_expand_flat(indptr, indices, pos, rows, total)
+
+    def intersect(self, csr, rows_local, targets):
+        """WCOJ membership probe: one ``wcoj_intersect`` kernel launch per
+        call.  The kernel maps hits through ``csr.pos`` and zeroes the edge
+        position where nothing was found."""
+        rows = self._col(rows_local).to(torch.int32).contiguous()
+        tgt = self._col(targets).to(torch.int32).contiguous()
+        if rows.shape[0] == 0:
+            return (torch.zeros(0, dtype=torch.bool, device=self.device),
+                    self._z32)
+        indptr, indices, pos = self._csr_dev(csr)
+        self.kernel_stats.record("dispatch", "intersect")
+        return wcoj_intersect(indptr, indices, rows, tgt, pos)
+
+    # --------------------------------------------------------- relational tail
+    def join(self, lkeys, rkeys, max_out=None):
+        lk, rk = self._col(lkeys), self._col(rkeys)
+        if lk.shape[0] == 0 or rk.shape[0] == 0:
+            return self._z32, self._z32
+        self.kernel_stats.record("dispatch", "join")
+        lorder, rorder, lo, cnt = torchops.sortmerge_bounds(lk, rk)
+        total = int(cnt.sum())                         # control-plane sync
+        if max_out is not None and total > max_out:
+            raise RuntimeError(f"intermediate blow-up: join would produce "
+                               f"{total} rows > cap {max_out}")
+        if total > _I32_MAX:
+            raise RuntimeError(f"intermediate blow-up: join would produce "
+                               f"{total} rows (beyond the int32 staging "
+                               f"envelope)")
+        if total == 0:
+            return self._z32, self._z32
+        return torchops.sortmerge_pairs(lorder, rorder, lo, cnt, total)
+
+    def combine_keys(self, cols: list):
+        cols = [self._col(c) for c in cols]
+        if len(cols) == 1:
+            return cols[0]
+        if cols[0].shape[0] == 0:
+            return self._z32
+        self.kernel_stats.record("dispatch", "lex_ranks")
+        return torchops.lex_ranks(cols)
+
+    def group_reduce(self, keys, values):
+        """Sorted-run grouping: groups ascend by key; ``first`` is each
+        group's minimal original row."""
+        keys = self._col(keys)
+        if keys.shape[0] == 0:
+            return self._z32, {name: self._z32 for name in values}
+        bad = [fn for fn, _ in values.values() if fn not in _AGGREGATES]
+        if bad:
+            raise ValueError(f"unknown aggregate {bad[0]}")
+        self.kernel_stats.record("dispatch", "group")
+        names = list(values)
+        order, starts = torchops.group_boundaries(keys)
+        first, outs = torchops.group_aggregate(
+            order, starts, tuple(self._col(values[nm][1]) for nm in names),
+            tuple(values[nm][0] for nm in names))
+        return first.to(torch.int32), dict(zip(names, outs))
+
+
+# Neutral cost weights, the numpy reference spec's: the port's plans equal
+# the reference numpy-spec plans.  Fit them from H100 runs before changing.
+TORCH_COST = CostParams()
+_DESCRIPTION = ("device-resident torch columns; eager torchops primitives + "
+                "the hand-written CUDA wcoj_intersect probe; sort-merge / "
+                "sorted-run relational tail")
+
+TORCH_SPEC = register_spec(PhysicalSpec(
+    name="torch",
+    make_operators=functools.partial(TorchOperators, device="cuda"),
+    cost=TORCH_COST,
+    description=_DESCRIPTION + " (cuda)",
+))
+
+_DEVICE_SPECS: dict[str, PhysicalSpec] = {"cuda": TORCH_SPEC}
+
+
+def torch_spec(device: str | torch.device | None = None) -> PhysicalSpec:
+    """The torch spec pinned to ``device`` (None: cuda).  Each device gets
+    its own registered name (``torch`` for cuda, ``torch[cpu]`` for the
+    CPU).  Raises ``RuntimeError`` for cuda when no CUDA device exists."""
+    dev = torch.device("cuda" if device is None else device)
+    _require_device(dev)
+    spec = _DEVICE_SPECS.get(str(dev))
+    if spec is None:
+        spec = register_spec(PhysicalSpec(
+            name=f"torch[{dev}]",
+            make_operators=functools.partial(TorchOperators, device=dev),
+            cost=TORCH_COST,
+            description=_DESCRIPTION + f" ({dev})"))
+        _DEVICE_SPECS[str(dev)] = spec
+    return spec

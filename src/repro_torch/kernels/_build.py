@@ -1,0 +1,81 @@
+"""Build the port's CUDA sources into shared libraries loaded with ctypes.
+
+Each ``csrc/*.cu`` exposes a plain C function (no PyTorch headers), so one
+``nvcc`` call per source takes seconds.  Libraries land in ``_build/``
+beside this file, named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  Building happens at
+first use (or up front through ``build``), never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# sm_90a (not sm_90): Hopper's arch-specific features (wgmma, setmaxnreg)
+# exist only for that target; -Xptxas -v reports registers and spills
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME`` (the
+    toolkit's default prefix when unset)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or under $CUDA_HOME)")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+
+
+def build(source: Path) -> dict:
+    """Compile ``source`` unless its library exists.  Returns ``{"path",
+    "seconds", "log", "cached"}`` (``log`` holds ptxas' register and spill
+    report); raises ``RuntimeError`` with the compiler output on failure."""
+    out = library_path(source)
+    if out.exists():
+        return {"path": out, "seconds": 0.0, "log": "", "cached": True}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a per-process temporary name, renamed into place when complete, so a
+    # concurrent builder never loads a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA kernel build failed: {source.name}: nvcc "
+                           f"exited {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return {"path": out, "seconds": time.perf_counter() - t0,
+            "log": proc.stdout, "cached": False}
+
+
+_LOADED: dict[Path, ctypes.CDLL] = {}
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, building it on first use."""
+    lib = _LOADED.get(source)
+    if lib is None:
+        path = library_path(source)
+        if not path.exists():
+            build(source)
+        lib = _LOADED[source] = ctypes.CDLL(str(path))
+    return lib

@@ -28,3 +28,9 @@ def small_ldbc():
 def gopt_small(small_ldbc):
     from repro.core.gopt import GOpt
     return GOpt(small_ldbc)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips itself without "
+        "one (the PyTorch port's kernels have no CPU mode)")
