@@ -6,22 +6,38 @@
 Phases, each printing one JSON line:
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
-2. build   — every CUDA kernel of the port compiled with nvcc (sm_90a), all
-             at once, timed as set-up;
-3. kernel  — each kernel held against its plain PyTorch version on the card
-             (exact equality), with its time, the plain version's, a
+2. build   — every CUDA kernel of the port compiled with nvcc (sm_90a), one
+             process per source, all started together, timed as set-up;
+3. kernel  — the WCOJ probe held against its plain PyTorch version on the
+             card (exact equality), with its time, the plain version's, a
              one-call PyTorch yardstick and the least time the card could
              take (``bound_ms``): first on a seeded synthetic CSR drawn
              with the store generator's own Zipf sampler;
-4. main    — the main path at full size: an LDBC-like store at sf=100
+4. main    — the graph path at full size: an LDBC-like store at sf=100
              (about 1.7M vertices, 13.4M edges), ``GOpt(store)`` on cuda
              (GLogue's triangle counts probe through the kernel), then the
              25 benchmark queries twice;
-5. kernel  — the kernel again on two membership probes GLogue made in
+5. kernel  — the probe again on two membership probes GLogue made in
              phase 4, captured on the card: the one with the most probes
              and the one with the most binary-search steps;
 6. check   — at sf=1, GLogue frequencies, plans and all 25 results equal on
-             ``device="cuda"`` and ``device="cpu"`` (the plain versions).
+             ``device="cuda"`` and ``device="cpu"`` (the plain versions);
+7. serve   — the serving path: OLMoE-1B-7B at full width and depth in bf16
+             (random weights from a seeded generator on the card),
+             ``ServeEngine`` with 8 slots of 4096 positions answering 16
+             requests (prompts of 128-2048 tokens, 64 new tokens each);
+             every attention goes through the FlashAttention kernel and
+             every expert product through the grouped-matmul kernel;
+8. kernel  — each of those two kernels on calls captured in phase 7 (the
+             longest prompt's prefill and one decode tick for attention;
+             that prefill's w1 and w2 products and one decode product for
+             the grouped matmul), against its plain version within the
+             reference's tolerance, with the same timings and bounds as
+             phase 3 (``library_ms``: one ``scaled_dot_product_attention``
+             with an explicit mask, one ``torch.bmm``);
+9. check   — OLMoE at full width but 2 layers, in float32 with TF32 off:
+             a 256-token prefill and 4 teacher-forced decode steps give the
+             same logits on ``device="cuda"`` and ``device="cpu"``.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -39,15 +55,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
 # outside the tensor cores — the closest listed rate for the probe's int32
-# compares.
+# compares — and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-SEED = 0            # of the synthetic kernel input
+BF16_OPS_PER_S = 989e12
+SEED = 0            # of the synthetic kernel input, the model and traffic
 REPS = 20           # timed repetitions per kernel measurement
 SF = 100.0          # scale factor of the main path's store
 CHECK_SF = 1.0      # scale factor of the cuda-vs-cpu cross-check
+# serving: 16 requests over 8 slots of 4096 positions
+N_SLOTS, MAX_LEN = 8, 4096
+N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (128, 2048), 64
+CAPTURE_TICK = 32   # the decode tick whose kernel calls are captured
+# the reference's bf16 tolerances (tests/test_kernels.py)
+ATTENTION_TOL, GMM_TOL = 2e-2, 3e-2
+# the float32 model check: layers, prompt, decode steps, tolerances
+CHECK_LAYERS, CHECK_PROMPT, CHECK_STEPS = 2, 256, 4
+CHECK_RTOL, CHECK_ATOL = 2e-3, 2e-4
 
 # The 25 benchmark queries (the paper's Appendix A on the LDBC schema
 # subset, plus LDBC interactive-complex-like queries): name, text, params.
@@ -458,19 +484,335 @@ def cross_check(sf: float) -> dict:
             "identical": True, "seconds": time.perf_counter() - t0}
 
 
-def kernel_entry(main_probe: dict, phases: list[dict],
-                 launches: int) -> dict:
-    return {"name": "wcoj_intersect", "route": "cuda",
-            "source": "src/repro_torch/kernels/wcoj_intersect/csrc/"
-                      "wcoj_intersect.cu",
-            "replaces": "src/repro/kernels/wcoj_intersect/"
-                        "wcoj_intersect.py:39",
-            "launches": launches,
+# ----------------------------------------------------------------- serving
+
+def serve_path() -> tuple[dict, object, dict]:
+    """OLMoE-1B-7B served by ``ServeEngine`` on the card.  Returns the
+    phase record, the model (its weights feed the kernel phases) and the
+    kernel calls captured on the way: the longest prompt's prefill and
+    decode tick ``CAPTURE_TICK`` (layer 0 of each)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.olmoe_1b_7b import CONFIG as cfg
+    from repro_torch.kernels.flash_attention.ref import per_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine
+    t0 = time.perf_counter()
+    model = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    engine = ServeEngine(cfg, model, n_slots=N_SLOTS, max_len=MAX_LEN,
+                         eos_id=-1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_tokens=NEW_TOKENS)
+            for i, n in enumerate(lens)]
+    longest = int(lens.max())
+
+    # capture layer 0's kernel inputs in two steps (cloned: the cache is
+    # rewritten later), time every step to its end, and keep one device
+    # flag per step for "every logit is finite" (read once, at the end)
+    captured, step = {}, {"kind": None, "tick": -1}
+    mlp0 = model.layers[0].mlp
+    real_fa, real_gmm = tfm.flash_attention, tfm.grouped_matmul
+
+    def capture_key(kernel):
+        if step["kind"] == "prefill" and step["len"] == longest:
+            return f"{kernel}_prefill"
+        if step["kind"] == "decode" and step["tick"] == CAPTURE_TICK:
+            return f"{kernel}_decode"
+        return None
+
+    def fa(q, k, v, q_start, kv_len, **kw):
+        key = capture_key("flash_attention")
+        if key and key not in captured:
+            B = q.shape[0]
+            captured[key] = (q.clone(), k.clone(), v.clone(),
+                             per_batch(q_start, B, q.device).clone(),
+                             per_batch(kv_len, B, q.device).clone(), kw)
+        return real_fa(q, k, v, q_start, kv_len, **kw)
+
+    def gmm(x, w):
+        key = capture_key("grouped_matmul")
+        names = {mlp0.w1.data_ptr(): "w1", mlp0.w2.data_ptr(): "w2"}
+        which = names.get(w.data_ptr())
+        if key and which and (which == "w1" or key.endswith("prefill")):
+            key = f"{key}_{which}"
+            if key not in captured:
+                captured[key] = (x.clone(), w)
+        return real_gmm(x, w)
+
+    prefill_ms, decode_ms, finite = [], [], []
+    real_prefill, real_decode = engine._prefill, engine._decode
+
+    def timed(kind, fn, *args):
+        t = time.perf_counter()
+        logits = fn(*args)
+        finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        (prefill_ms if kind == "prefill" else decode_ms).append(
+            (time.perf_counter() - t) * 1e3)
+        return logits
+
+    def prefill(tokens, slot):
+        step.update(kind="prefill", len=int(tokens.shape[1]))
+        return timed("prefill", real_prefill, tokens, slot)
+
+    def decode(tokens, pos):
+        step.update(kind="decode", tick=len(decode_ms))
+        return timed("decode", real_decode, tokens, pos)
+
+    engine._prefill, engine._decode = prefill, decode
+    tfm.flash_attention, tfm.grouped_matmul = fa, gmm
+    try:
+        for r in reqs:
+            engine.submit(r)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = engine.run(max_ticks=10_000)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        tfm.flash_attention, tfm.grouped_matmul = real_fa, real_gmm
+    peak = torch.cuda.max_memory_allocated()
+
+    n_pre, n_tick = len(prefill_ms), len(decode_ms)
+    generated = sum(len(r.out_tokens) for r in done)
+    require(len(done) == N_REQUESTS and all(
+        r.done and len(r.out_tokens) == NEW_TOKENS for r in done),
+        f"serve: {len(done)} of {N_REQUESTS} requests finished with "
+        f"{NEW_TOKENS} tokens")
+    require(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
+            "serve: a token outside the vocabulary")
+    require(bool(torch.stack(finite).all()), "serve: non-finite logits")
+    require(n_pre == N_REQUESTS, f"serve: {n_pre} prefills")
+    steps = n_pre + n_tick
+    for name, per_step in (("flash_attention", cfg.n_layers),
+                           ("grouped_matmul", 3 * cfg.n_layers)):
+        require(launches.get(name, 0) == per_step * steps,
+                f"serve: {launches.get(name, 0)} {name} launches, expected "
+                f"{per_step} x {steps} steps")
+    require(set(captured) == {
+        "flash_attention_prefill", "flash_attention_decode",
+        "grouped_matmul_prefill_w1", "grouped_matmul_prefill_w2",
+        "grouped_matmul_decode_w1"}, f"serve: captured {sorted(captured)}")
+    longest_prompt = next(r.prompt for r in reqs if len(r.prompt) == longest)
+    profiled = {
+        "decode": profile_step(real_decode, torch.zeros(
+            (N_SLOTS, 1), dtype=torch.int64, device="cuda"),
+            torch.tensor(engine.slot_pos, device="cuda")),
+        "prefill": profile_step(real_prefill, torch.as_tensor(
+            longest_prompt[None].astype(np.int64), device="cuda"), 0)}
+    del engine
+    rec = {"phase": "serve", "model": cfg.name, "dtype": str(cfg.dtype),
+           "layers": cfg.n_layers, "params": cfg.param_count(),
+           "slots": N_SLOTS, "max_len": MAX_LEN, "requests": len(done),
+           "prompt_tokens": int(lens.sum()), "longest_prompt": longest,
+           "generated_tokens": generated, "prefills": n_pre, "ticks": n_tick,
+           "init_s": init_s, "wall_s": wall_s,
+           "prefill_ms_median": statistics.median(prefill_ms),
+           "prefill_ms_total": sum(prefill_ms),
+           "decode_ms_median": statistics.median(decode_ms),
+           "decode_ms_total": sum(decode_ms),
+           "host_ms_total": wall_s * 1e3 - sum(prefill_ms) - sum(decode_ms),
+           "generated_tokens_per_s": generated / wall_s,
+           "launches": launches, "max_memory_allocated": peak,
+           "profiled": profiled}
+    return rec, model, captured
+
+
+def profile_step(step, *args) -> dict:
+    """One more engine step (warmed up once) under ``torch.profiler``:
+    its host-clock ms, the device's kernel ms by kind, and the device's
+    idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0, "matmul": 0.0,
+             "other": 0.0}
+    kernels, other = 0, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += ev.count
+        name, ms = ev.key.lower(), ev.self_device_time_total / 1e3
+        kind = ("flash_attention" if "attn_" in name
+                else "grouped_matmul" if "gmm_kernel" in name
+                else "matmul" if any(s in name for s in (
+                    "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas"))
+                else "other")
+        kinds[kind] += ms
+        if kind == "other":
+            other.append((ms, ev.count, ev.key[:60]))
+    device_ms = sum(kinds.values())
+    require(device_ms > 0, "profiler recorded no device time")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "device_kernels": kernels, "device_ms_by_kind": kinds,
+            "top_other": sorted(other, reverse=True)[:5]}
+
+
+def _verdict(label: str, got, want, tol: float) -> dict:
+    """The reference's allclose (|a - b| <= tol + tol*|b|) and the max
+    abs error."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    limit = tol + tol * want.float().abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    worst = float((diff / limit).max()) if diff.numel() else 0.0
+    require(worst <= 1.0 and bool(torch.isfinite(got).all()),
+            f"{label}: kernel differs from the plain version (max abs err "
+            f"{err}, {worst:.3f} of the tolerance)")
+    return {"max_abs_err": err, "tol": tol, "worst_of_tol": worst}
+
+
+def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
+                    reps: int = REPS) -> dict:
+    """The FlashAttention kernel against its plain version on one captured
+    call, with the SDPA yardstick and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    args = (q, k, v, q_start, kv_len)
+    got = flash_attention(*args, **kw)
+    want = flash_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    rec = _verdict(label, got, want, ATTENTION_TOL)
+    B, Sq, Kh, G, hd = q.shape
+    Skv = k.shape[1]
+    # admissible (query, key) positions, as the kernel's mask defines them
+    q_pos = q_start[:, None] + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    mask = (kv_pos[None, None] <= q_pos[:, :, None]) & (
+        kv_pos[None, None] < kv_len[:, None, None])
+    if kw.get("window") is not None:
+        mask &= kv_pos[None, None] > q_pos[:, :, None] - kw["window"]
+    pairs = int(mask.sum()) * Kh * G
+    esize = q.element_size()
+    nbytes = esize * (2 * q.numel() + 2 * int(kv_len.sum()) * Kh * hd)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 4 * hd * pairs / BF16_OPS_PER_S * 1e3
+    kernel_ms = cuda_ms(lambda: flash_attention(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(*args, **kw),
+                       max(3, reps // 4), warmup=1)
+    # yardstick: one SDPA call on the same cache with an explicit mask
+    qs = q.permute(0, 2, 3, 1, 4).reshape(B, Kh * G, Sq, hd)
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    amask = mask[:, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=amask, enable_gqa=G > 1), reps)
+    rec.update({"phase": "kernel", "name": "flash_attention", "input": label,
+                "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Kh": Kh, "G": G,
+                          "hd": hd},
+                "dtype": str(q.dtype), "kv_len": kv_len.tolist(),
+                "admissible_pairs": pairs, "bytes": nbytes,
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                             else "operations")})
+    return rec
+
+
+def gmm_phase(label: str, x, w, reps: int = REPS) -> dict:
+    """The grouped-matmul kernel against its plain version on one captured
+    product, with the ``torch.bmm`` yardstick and the bound."""
+    import torch
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    got = grouped_matmul(x, w)
+    want = grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    rec = _verdict(label, got, want, GMM_TOL)
+    G, M, K = x.shape
+    N = w.shape[2]
+    nbytes = x.element_size() * (x.numel() + w.numel() + G * M * N)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 2 * G * M * K * N / BF16_OPS_PER_S * 1e3
+    rec.update({"phase": "kernel", "name": "grouped_matmul", "input": label,
+                "shape": {"G": G, "M": M, "K": K, "N": N},
+                "dtype": str(x.dtype), "bytes": nbytes,
+                "kernel_ms": cuda_ms(lambda: grouped_matmul(x, w), reps),
+                "plain_ms": cuda_ms(lambda: grouped_matmul_ref(x, w),
+                                    max(3, reps // 4), warmup=1),
+                "library_ms": cuda_ms(lambda: torch.bmm(x, w), reps),
+                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                             else "operations")})
+    return rec
+
+
+def model_check() -> dict:
+    """OLMoE at full width and 2 layers in float32 (TF32 off): prefill and
+    teacher-forced decode give the same logits on cuda and on cpu."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.olmoe_1b_7b import CONFIG
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(CONFIG, n_layers=CHECK_LAYERS,
+                              dtype=torch.float32)
+    t0 = time.perf_counter()
+    on_card = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    on_host = tfm.Transformer(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (1, CHECK_PROMPT))
+    forced = rng.integers(0, cfg.vocab_size, (CHECK_STEPS, 1, 1))
+    logits = {}
+    for dev, model in (("cuda", on_card), ("cpu", on_host)):
+        caches = tfm.init_kv_cache(cfg, 1, CHECK_PROMPT + CHECK_STEPS,
+                                   device=dev)
+        out, caches = tfm.prefill(model, torch.as_tensor(prompt, device=dev),
+                                  cfg, caches)
+        steps = [out]
+        for i in range(CHECK_STEPS):
+            out, caches = tfm.decode_step(
+                model, torch.as_tensor(forced[i], device=dev), cfg, caches,
+                CHECK_PROMPT + i)
+            steps.append(out)
+        logits[dev] = torch.stack(steps).cpu().numpy()
+    a, b = logits["cuda"], logits["cpu"]
+    err = float(np.abs(a - b).max())
+    require(np.isfinite(a).all(), "model check: non-finite logits on cuda")
+    require(np.allclose(a, b, rtol=CHECK_RTOL, atol=CHECK_ATOL),
+            f"model check: cuda and cpu logits differ (max abs err {err})")
+    require((a.argmax(-1) == b.argmax(-1)).all(),
+            "model check: argmax tokens differ between cuda and cpu")
+    return {"phase": "check", "model": cfg.name, "layers": cfg.n_layers,
+            "dtype": str(cfg.dtype), "prompt": CHECK_PROMPT,
+            "decode_steps": CHECK_STEPS, "max_abs_err": err,
+            "rtol": CHECK_RTOL, "atol": CHECK_ATOL, "argmax_equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------------------------------ report
+
+def kernel_entry(name: str, source: str, replaces: str, heaviest: dict,
+                 phases: list[dict], launches: int) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(p["max_abs_err"] for p in phases),
-            "ms": main_probe["kernel_ms"], "plain_ms": main_probe["plain_ms"],
-            "bound_ms": main_probe["bound_ms"],
-            "bound_by": main_probe["bound_by"],
-            "library_ms": main_probe["library_ms"]}
+            "ms": heaviest["kernel_ms"], "plain_ms": heaviest["plain_ms"],
+            "bound_ms": heaviest["bound_ms"],
+            "bound_by": heaviest["bound_by"],
+            "library_ms": heaviest["library_ms"]}
 
 
 def run() -> int:
@@ -484,9 +826,7 @@ def run() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch import kernels
         from repro_torch.kernels import _build
-        from repro_torch.kernels.wcoj_intersect import ops as wcoj_ops
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -500,12 +840,15 @@ def run() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    built = _build.build(wcoj_ops.SOURCE)
+    built = _build.build_all()
+    require(len(built) == 3, f"expected 3 kernel sources, found "
+                             f"{sorted(s.name for s in built)}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {wcoj_ops.NAME: {
-              "seconds": built["seconds"], "cached": built["cached"],
-              "ptxas": [ln for ln in built["log"].splitlines()
-                        if "registers" in ln or "spill" in ln]}}})
+          "kernels": {src.stem: {
+              "seconds": b["seconds"], "cached": b["cached"],
+              "ptxas": [ln for ln in b["log"].splitlines()
+                        if "registers" in ln or "spill" in ln]}
+              for src, b in built.items()}})
 
     dev = torch.device("cuda")
     synth = probe_phase("synthetic_zipf", *synthetic_probe(SEED, dev))
@@ -521,10 +864,39 @@ def run() -> int:
 
     emit(cross_check(CHECK_SF))
 
-    # the kernels line reports the heaviest probe the main path gave it
-    emit({"kernels": [kernel_entry(
-        captured["glogue_most_steps"], [synth, *captured.values()],
-        main_rec["launches"].get("wcoj_intersect", 0))]})
+    serve_rec, model, calls = serve_path()
+    emit(serve_rec)
+    fa_phases = [attention_phase(label, *calls[f"flash_attention_{label}"])
+                 for label in ("prefill", "decode")]
+    gmm_phases = [gmm_phase(label, *calls[f"grouped_matmul_{label}"])
+                  for label in ("prefill_w1", "prefill_w2", "decode_w1")]
+    for rec in fa_phases + gmm_phases:
+        emit(rec)
+    del model, calls
+    torch.cuda.empty_cache()
+    emit(model_check())
+
+    # the kernels line reports the heaviest captured call of each kernel
+    emit({"kernels": [
+        kernel_entry(
+            "wcoj_intersect",
+            "src/repro_torch/kernels/wcoj_intersect/csrc/wcoj_intersect.cu",
+            "src/repro/kernels/wcoj_intersect/wcoj_intersect.py:39",
+            captured["glogue_most_steps"], [synth, *captured.values()],
+            main_rec["launches"].get("wcoj_intersect", 0)),
+        kernel_entry(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:69",
+            fa_phases[0], fa_phases,
+            serve_rec["launches"].get("flash_attention", 0)),
+        kernel_entry(
+            "grouped_matmul",
+            "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:38",
+            gmm_phases[0], gmm_phases,
+            serve_rec["launches"].get("grouped_matmul", 0))]})
     print(smi, flush=True)
     require(time.perf_counter() - t_start < 1200, "smoke run over 1200 s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

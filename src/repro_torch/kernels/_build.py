@@ -1,10 +1,10 @@
 """Build the port's CUDA sources into shared libraries loaded with ctypes.
 
-Each ``csrc/*.cu`` exposes a plain C function (no PyTorch headers), so one
+Each ``csrc/*.cu`` exposes plain C functions (no PyTorch headers), so one
 ``nvcc`` call per source takes seconds.  Libraries land in ``_build/``
 beside this file, named by a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  Building happens at
-first use (or up front through ``build``), never at import.
+first use (or up front through ``build``/``build_all``), never at import.
 """
 from __future__ import annotations
 
@@ -14,9 +14,11 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR / "_build"
 # sm_90a (not sm_90): Hopper's arch-specific features (wgmma, setmaxnreg)
 # exist only for that target; -Xptxas -v reports registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -65,6 +67,17 @@ def build(source: Path) -> dict:
     os.replace(tmp, out)
     return {"path": out, "seconds": time.perf_counter() - t0,
             "log": proc.stdout, "cached": False}
+
+
+def build_all() -> dict[Path, dict]:
+    """``build`` every kernel source of the port (``*/csrc/*.cu``), one
+    ``nvcc`` process each, all started together.  Returns ``{source:
+    build(source)}``; the first failure raises once every build has
+    ended."""
+    sources = sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        futures = {src: pool.submit(build, src) for src in sources}
+    return {src: fut.result() for src, fut in futures.items()}
 
 
 _LOADED: dict[Path, ctypes.CDLL] = {}

@@ -45,7 +45,7 @@ def test_port_imports_no_jax_reference_or_benchmarks(path):
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"torch_backend.py", "engine.py", "gopt.py", "ops.py",
-            "chip_smoke.py"} <= names
+            "transformer.py", "chip_smoke.py"} <= names
 
 
 def test_gopt_without_device_raises_without_a_card(small_ldbc):

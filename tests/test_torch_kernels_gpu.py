@@ -1,0 +1,149 @@
+"""The port's CUDA kernels on the card: each against its plain version, and
+the LM on cuda against the LM on cpu.  Every test here is marked ``gpu``
+and skips itself without a card.  The file imports neither jax nor the
+reference package, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+"""
+import dataclasses
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+CONFIGS = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "qwen2_5_32b",
+           "phi3_medium_14b", "gemma2_27b"]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# ------------------------------------------------------------ K2 attention
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["prefill", "decode", "chunk", "window",
+                                  "hd16", "hd64_decode"])
+def test_attention_kernel_matches_plain_version(card, case, dtype):
+    """On CUDA tensors the wrapper launches the kernel (counted) and agrees
+    with the plain version: both the many-rows and the decode kernel."""
+    g = torch.Generator(device=card).manual_seed(len(case))
+    B, Skv, K, G, hd = 3, 300, 4, 2, 128
+    window, cap = None, None
+    if case == "hd16":
+        hd = 16
+    if case == "hd64_decode":
+        hd, G = 64, 4
+    if case in ("prefill", "window", "hd16"):
+        Sq, q_start = 200, torch.tensor([0, 0, 0])
+        if case == "window":
+            window, cap = 37, 50.0
+    elif case == "chunk":
+        Sq, q_start = 16, torch.tensor([0, 100, 250])
+    else:
+        Sq, q_start = 1, torch.tensor([5, 150, 299])
+    kv_len = q_start + Sq
+    q = torch.randn(B, Sq, K, G, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    q_start, kv_len = q_start.to(card), kv_len.to(card)
+    before = kernels.LAUNCHES.get("flash_attention", 0)
+    got = flash_attention(q, k, v, q_start, kv_len, window=window,
+                          softcap=cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, q_start, kv_len, window=window,
+                               softcap=cap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_raises_instead_of_falling_back(card):
+    q = torch.zeros(1, 4, 2, 1, 24, device=card)
+    kv = torch.zeros(1, 4, 2, 24, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, kv, kv, 0, 4)
+    q = torch.zeros(1, 4, 2, 1, 32, device=card)
+    kv = torch.zeros(1, 2, 4, 32, device=card).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, kv, kv, 0, 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), kv.contiguous().half(),
+                        kv.contiguous().half(), 0, 4)
+
+
+# ------------------------------------------------------ K3 grouped matmul
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,M,K,N", [(64, 8, 2048, 1024), (8, 320, 256, 96),
+                                     (3, 37, 65, 50), (2, 1, 1, 1)])
+def test_grouped_matmul_kernel_matches_plain_version(card, G, M, K, N,
+                                                      dtype):
+    g = torch.Generator(device=card).manual_seed(M * N)
+    x = torch.randn(G, M, K, generator=g, device=card).to(dtype)
+    w = (torch.randn(G, K, N, generator=g, device=card) / K ** 0.5).to(dtype)
+    before = kernels.LAUNCHES.get("grouped_matmul", 0)
+    got = grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_matmul"] == before + 1
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_kernel_raises_instead_of_falling_back(card):
+    x = torch.zeros(2, 4, 3, device=card).transpose(1, 2)
+    w = torch.zeros(2, 4, 5, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul(x, w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        grouped_matmul(x.contiguous().half(), w.half())
+
+
+# -------------------------------------------------------------- the model
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CONFIGS)
+def test_model_on_the_card_matches_the_cpu(card, name):
+    """Each SMOKE config in float32 (TF32 off): prefill then per-slot
+    decode on cuda (through both kernels) equals the plain versions on
+    the cpu, rtol 2e-3 / atol 2e-4."""
+    from repro_torch.models import transformer as tfm
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(importlib.import_module(
+        f"repro_torch.configs.{name}").SMOKE, dtype=torch.float32)
+    on_card = tfm.init_params(cfg, torch.Generator(card).manual_seed(0),
+                              device=card)
+    on_host = tfm.Transformer(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 12))
+    nxt = rng.integers(0, cfg.vocab_size, (2, 1))
+    out = {}
+    before = dict(kernels.LAUNCHES)
+    for dev, model in ((card, on_card), (torch.device("cpu"), on_host)):
+        caches = tfm.init_kv_cache(cfg, 2, 24, device=dev)
+        last, caches = tfm.prefill(model, torch.as_tensor(toks, device=dev),
+                                   cfg, caches)
+        step, _ = tfm.decode_step_multi(
+            model, torch.as_tensor(nxt, device=dev), cfg, caches,
+            torch.tensor([12, 12], device=dev))
+        out[dev.type] = (last.cpu(), step.cpu())
+    assert kernels.LAUNCHES["flash_attention"] == \
+        before.get("flash_attention", 0) + 2 * cfg.n_layers
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
