@@ -16,12 +16,16 @@ Phases, each printing one JSON line:
 4. main    — the graph path at full size: an LDBC-like store at sf=100
              (about 1.7M vertices, 13.4M edges), ``GOpt(store)`` on cuda
              (GLogue's triangle counts probe through the kernel), then the
-             25 benchmark queries twice;
+             25 benchmark queries twice: the first run of each fused expand
+             chain measures it on the per-hop loop, the second dispatches
+             it as one fused program whose probes launch the kernel;
 5. kernel  — the probe again on two membership probes GLogue made in
              phase 4, captured on the card: the one with the most probes
              and the one with the most binary-search steps;
 6. check   — at sf=1, GLogue frequencies, plans and all 25 results equal on
-             ``device="cuda"`` and ``device="cpu"`` (the plain versions);
+             ``device="cuda"`` and ``device="cpu"`` (the plain versions),
+             and the fused chains on cuda, the per-hop loop on cuda and the
+             fused chains on the cpu give identical rows;
 7. serve   — the serving path: OLMoE-1B-7B at full width and depth in bf16
              (random weights from a seeded generator on the card),
              ``ServeEngine`` with 8 slots of 4096 positions answering 16
@@ -37,7 +41,23 @@ Phases, each printing one JSON line:
              with an explicit mask, one ``torch.bmm``);
 9. check   — OLMoE at full width but 2 layers, in float32 with TF32 off:
              a 256-token prefill and 4 teacher-forced decode steps give the
-             same logits on ``device="cuda"`` and ``device="cpu"``.
+             same logits on ``device="cuda"`` and ``device="cpu"``;
+10. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
+             13.7 GB embedding table; random fp32 weights from a seeded
+             generator on the card) serving the reference's three shapes:
+             ``serve_p99`` (batch 512) 50 times, ``serve_bulk`` (batch
+             262,144) 3 times, ``retrieval_cand`` (1 query, 1M candidates)
+             20 times; every forward's bag lookups go through one
+             embedding-bag kernel launch.  The batches are the reference's
+             seeded synthetic click log, built on the host and copied to
+             the card outside the timed window (``recsys_copy``); then one
+             more forward of each shape under ``torch.profiler``;
+11. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
+             ``serve_bulk`` lookups against its plain version (1e-4, the
+             reference's tolerance), with one
+             ``torch.nn.functional.embedding_bag`` call as the yardstick;
+12. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
+             same outputs on ``device="cuda"`` and ``device="cpu"``.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -46,6 +66,7 @@ last line, as does a run with no CUDA device or without the repository's
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -74,6 +95,11 @@ ATTENTION_TOL, GMM_TOL = 2e-2, 3e-2
 # the float32 model check: layers, prompt, decode steps, tolerances
 CHECK_LAYERS, CHECK_PROMPT, CHECK_STEPS = 2, 256, 4
 CHECK_RTOL, CHECK_ATOL = 2e-3, 2e-4
+# Wide & Deep: timed runs per shape, the reference's embedding-bag
+# tolerance, and the float32 cuda-vs-cpu tolerances of the SMOKE check
+RECSYS_RUNS = {"serve_p99": 50, "serve_bulk": 3, "retrieval_cand": 20}
+BAG_TOL = 1e-4
+RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5
 
 # The 25 benchmark queries (the paper's Appendix A on the LDBC schema
 # subset, plus LDBC interactive-complex-like queries): name, text, params.
@@ -335,12 +361,14 @@ def run_queries(gopt, reps: int = 2) -> list[dict]:
     failure."""
     import numpy as np
     import torch
+    from repro_torch import kernels
     from repro_torch.core.physical_spec import TransferStats
     out = []
     for name, text, params in QUERIES:
-        rec = {"name": name}
+        rec = {"name": name, "probe_launches": []}
         prev = None
         for rep in range(reps):
+            launched = kernels.LAUNCHES.get("wcoj_intersect", 0)
             t0 = time.perf_counter()
             try:
                 tbl, st = gopt.run(text, params)
@@ -352,7 +380,11 @@ def run_queries(gopt, reps: int = 2) -> list[dict]:
                 rec.update(outcome="blowup", error=str(exc)[:160])
                 rec["ms" if rep else "first_ms"] = \
                     (time.perf_counter() - t0) * 1e3
+                rec["probe_launches"].append(
+                    kernels.LAUNCHES.get("wcoj_intersect", 0) - launched)
                 continue
+            rec["probe_launches"].append(
+                kernels.LAUNCHES.get("wcoj_intersect", 0) - launched)
             ms = (time.perf_counter() - t0) * 1e3
             rec["ms" if rep else "first_ms"] = ms
             cols = {k: np.asarray(v) for k, v in tbl.cols.items()}
@@ -369,10 +401,25 @@ def run_queries(gopt, reps: int = 2) -> list[dict]:
             prev = cols
             d2h = TransferStats.mid_plan_d2h(st.transfers)
             require(d2h == 0, f"{name}: {d2h} mid-plan device->host copies")
+            k = st.kernels or {}
             rec.update(outcome="ok", rows=tbl.nrows,
-                       rows_produced=st.rows_produced, mid_plan_d2h=d2h,
-                       intersect_dispatches=(st.kernels or {}).get(
-                           "dispatch:intersect", 0))
+                       rows_produced=st.rows_produced, mid_plan_d2h=d2h)
+            # per run: the first measures each chain on the loop, the
+            # second dispatches it fused
+            for key, label in (("intersect_dispatches", "dispatch:intersect"),
+                               ("fused_dispatches", "dispatch:fused_chain"),
+                               ("fused_compiles", "compile:fused_chain"),
+                               ("chain_probes", "probe:fused_chain")):
+                rec.setdefault(key, []).append(k.get(label, 0))
+            rec["fallbacks"] = st.fallbacks
+            # every probe of the run is one kernel launch: inside a fused
+            # chain, or one intersect operator call
+            require(rec["probe_launches"][-1]
+                    == rec["chain_probes"][-1]
+                    + rec["intersect_dispatches"][-1],
+                    f"{name}: {rec['probe_launches'][-1]} wcoj_intersect "
+                    f"launches, {rec['chain_probes'][-1]} chain probes and "
+                    f"{rec['intersect_dispatches'][-1]} intersects")
         out.append(rec)
     return out
 
@@ -428,6 +475,16 @@ def main_path(sf: float) -> tuple[dict, dict]:
     require(glogue_launches == calls["n"] > 0,
             "GLogue intersect calls and kernel launches disagree")
     ok = [q for q in queries if q["outcome"] == "ok"]
+    chains = {key: sum(sum(q.get(key, [])) for q in ok)
+              for key in ("intersect_dispatches", "fused_dispatches",
+                          "fused_compiles", "chain_probes")}
+    require(chains["fused_dispatches"] > 0,
+            "main path dispatched no fused chain")
+    require(chains["chain_probes"] > 0,
+            "no wcoj_intersect launch from inside a fused chain")
+    require(launches["wcoj_intersect"] - glogue_launches == sum(
+        sum(q["probe_launches"]) for q in queries),
+        "query runs and wcoj_intersect launches disagree")
     rec = {"phase": "main", "sf": sf, "vertices": store.n_vertices,
            "edges": store.n_edges, "generate_s": gen_s, "gopt_s": gopt_s,
            "glogue_freqs": len(gopt.glogue.freq),
@@ -436,6 +493,10 @@ def main_path(sf: float) -> tuple[dict, dict]:
            "glogue_probed_rows": calls["rows"],
            "glogue_search_steps": calls["steps"],
            "launches": launches,
+           "query_intersect_launches": chains["intersect_dispatches"],
+           "chain_probe_launches": chains["chain_probes"],
+           "fused_chain_dispatches": chains["fused_dispatches"],
+           "fused_chain_compiles": chains["fused_compiles"],
            "queries_ok": len(ok),
            "queries_blowup": len(queries) - len(ok),
            "warm_ms_total_ok": sum(q["ms"] for q in ok),
@@ -451,9 +512,20 @@ def main_path(sf: float) -> tuple[dict, dict]:
     return rec, probes
 
 
-def cross_check(sf: float) -> dict:
-    """GLogue, plans and results on cuda equal those on cpu."""
+def _rows_equal(name: str, what: str, a, b) -> None:
     import numpy as np
+    require(a.nrows == b.nrows and set(a.cols) == set(b.cols),
+            f"{name}: result shapes differ ({what})")
+    for k in a.cols:
+        x, y = np.asarray(a.cols[k]), np.asarray(b.cols[k])
+        require(x.dtype == y.dtype and np.array_equal(x, y),
+                f"{name}: column {k} differs ({what})")
+
+
+def cross_check(sf: float) -> dict:
+    """GLogue, plans and results on cuda equal those on cpu; once each
+    chain is measured, the fused chains on cuda, the per-hop loop on cuda
+    and the fused chains on cpu give identical rows."""
     from repro_torch.core.gopt import GOpt
     from repro_torch.core.physical import plan_signature
     from repro_torch.graphdb.ldbc import generate_ldbc
@@ -465,23 +537,29 @@ def cross_check(sf: float) -> dict:
             "device specs not pinned")
     require(gc.glogue.freq == gh.glogue.freq,
             "GLogue frequencies differ between cuda and cpu")
-    rows = 0
+    rows, fused = 0, {"cuda": 0, "cpu": 0}
     for name, text, params in QUERIES:
         oc, oh = gc.optimize(text, params), gh.optimize(text, params)
         require(plan_signature(oc.physical) == plan_signature(oh.physical),
                 f"{name}: plans differ between cuda and cpu")
-        tc, _ = gc.execute(oc, params=params)
+        tc, _ = gc.execute(oc, params=params)          # measuring runs
         th, _ = gh.execute(oh, params=params)
-        require(tc.nrows == th.nrows and set(tc.cols) == set(th.cols),
-                f"{name}: result shapes differ between cuda and cpu")
-        for k in tc.cols:
-            a, b = np.asarray(tc.cols[k]), np.asarray(th.cols[k])
-            require(a.dtype == b.dtype and np.array_equal(a, b),
-                    f"{name}: column {k} differs between cuda and cpu")
+        _rows_equal(name, "cuda vs cpu, first run", tc, th)
+        fc, sc = gc.execute(oc, params=params)
+        lc, _ = gc.execute(oc, params=params, chain_dispatch=False)
+        fh, shh = gh.execute(oh, params=params)
+        _rows_equal(name, "fused cuda vs loop cuda", fc, lc)
+        _rows_equal(name, "fused cuda vs fused cpu", fc, fh)
+        _rows_equal(name, "fused cuda vs first run", fc, tc)
+        fused["cuda"] += (sc.kernels or {}).get("dispatch:fused_chain", 0)
+        fused["cpu"] += (shh.kernels or {}).get("dispatch:fused_chain", 0)
         rows += tc.nrows
+    require(fused["cuda"] > 0 and fused["cuda"] == fused["cpu"],
+            f"fused chain dispatches: {fused}")
     return {"phase": "check", "sf": sf, "queries": len(QUERIES),
             "result_rows": rows, "glogue_freqs": len(gc.glogue.freq),
-            "identical": True, "seconds": time.perf_counter() - t0}
+            "fused_chain_dispatches": fused, "identical": True,
+            "seconds": time.perf_counter() - t0}
 
 
 # ----------------------------------------------------------------- serving
@@ -627,7 +705,7 @@ def serve_path() -> tuple[dict, object, dict]:
 
 
 def profile_step(step, *args) -> dict:
-    """One more engine step (warmed up once) under ``torch.profiler``:
+    """One more step (warmed up once) under ``torch.profiler``:
     its host-clock ms, the device's kernel ms by kind, and the device's
     idle share of the step."""
     import torch
@@ -640,8 +718,8 @@ def profile_step(step, *args) -> dict:
         step(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0, "matmul": 0.0,
-             "other": 0.0}
+    kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0,
+             "embedding_bag": 0.0, "matmul": 0.0, "other": 0.0}
     kernels, other = 0, []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -650,6 +728,7 @@ def profile_step(step, *args) -> dict:
         name, ms = ev.key.lower(), ev.self_device_time_total / 1e3
         kind = ("flash_attention" if "attn_" in name
                 else "grouped_matmul" if "gmm_kernel" in name
+                else "embedding_bag" if "embedding_bag_kernel" in name
                 else "matmul" if any(s in name for s in (
                     "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas"))
                 else "other")
@@ -802,6 +881,201 @@ def model_check() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------------ recsys
+
+def recsys_path() -> tuple[dict, dict, dict]:
+    """Wide & Deep ``CONFIG`` serving its three shapes on the card.
+    Returns the phase record, the host-to-card copy record and the kernel
+    calls captured on the way (the first ``serve_p99`` and ``serve_bulk``
+    lookups: their ids and the table)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import wide_deep as wd
+    from repro_torch.models import recsys
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "recsys: TF32 matmuls are on")
+    cfg = wd.CONFIG
+    t0 = time.perf_counter()
+    model = recsys.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == cfg.param_count() + 1,     # + the wide bias
+            f"recsys: {n_params} parameters, config {cfg.param_count()}")
+    # batches: built on the host, then copied, both outside the timing
+    host, batches, build_s, copy_ms = {}, {}, {}, {}
+    for shape in RECSYS_RUNS:
+        t0 = time.perf_counter()
+        host[shape] = wd.host_batch(cfg, wd.SHAPES[shape], seed=SEED)
+        build_s[shape] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches[shape] = {k: torch.as_tensor(v, device="cuda")
+                          for k, v in host[shape].items()}
+        torch.cuda.synchronize()
+        copy_ms[shape] = (time.perf_counter() - t0) * 1e3
+    copy_rec = {"phase": "recsys_copy", "host_build_s": build_s,
+                "copy_ms": copy_ms,
+                "bytes": {sh: sum(int(v.nbytes) for v in b.values())
+                          for sh, b in host.items()}}
+
+    captured, current = {}, {"shape": None}
+    real_bag = recsys.bag_sum
+
+    def bag(ids, table):
+        key = current["shape"]
+        if key in ("serve_p99", "serve_bulk") and key not in captured:
+            captured[key] = (ids.clone(), table)
+        return real_bag(ids, table)
+
+    dims = {shape: wd.SHAPES[shape].dims for shape in RECSYS_RUNS}
+    out_shape = {shape: (d.get("n_candidates", d["batch"]),)
+                 for shape, d in dims.items()}
+    ms, finite, forwards = {}, [], 0
+    recsys.bag_sum = bag
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_all = time.perf_counter()
+        for shape, runs in RECSYS_RUNS.items():
+            current["shape"] = shape
+            step = wd.make_step(cfg, wd.SHAPES[shape].kind)
+            b = batches[shape]
+            times = []
+            for i in range(1 + runs):               # one warm-up run
+                t = time.perf_counter()
+                out = step(model, b)
+                torch.cuda.synchronize()
+                if i:
+                    times.append((time.perf_counter() - t) * 1e3)
+                forwards += 1
+                require(tuple(out.shape) == out_shape[shape],
+                        f"recsys {shape}: output shape {tuple(out.shape)}")
+                finite.append(torch.isfinite(out).all())
+            ms[shape] = times
+        wall_s = time.perf_counter() - t_all
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        recsys.bag_sum = real_bag
+    peak = torch.cuda.max_memory_allocated()
+    profiled = {shape: profile_step(wd.make_step(cfg, wd.SHAPES[shape].kind),
+                                    model, batches[shape])
+                for shape in RECSYS_RUNS}
+    require(bool(torch.stack(finite).all()), "recsys: non-finite outputs")
+    require(launches.get("embedding_bag", 0) == forwards,
+            f"recsys: {launches.get('embedding_bag', 0)} embedding_bag "
+            f"launches for {forwards} forwards")
+    require(set(captured) == {"serve_p99", "serve_bulk"},
+            f"recsys: captured {sorted(captured)}")
+    p99 = np.asarray(ms["serve_p99"])
+    bulk_s = np.asarray(ms["serve_bulk"]) / 1e3
+    rec = {"phase": "recsys", "model": cfg.name, "dtype": str(cfg.dtype),
+           "params": n_params - 1,
+           "table_bytes": model.table.numel() * model.table.element_size(),
+           "items_bytes": model.items.numel() * model.items.element_size(),
+           "init_s": init_s, "wall_s": wall_s, "forwards": forwards,
+           "serve_p99": {"batch": dims["serve_p99"]["batch"],
+                         "runs": len(p99),
+                         "p50_ms": float(np.percentile(p99, 50)),
+                         "p99_ms": float(np.percentile(p99, 99)),
+                         "max_ms": float(p99.max())},
+           "serve_bulk": {"batch": dims["serve_bulk"]["batch"],
+                          "runs": len(bulk_s),
+                          "ms": [float(x) for x in ms["serve_bulk"]],
+                          "examples_per_s": float(
+                              dims["serve_bulk"]["batch"]
+                              / np.median(bulk_s))},
+           "retrieval_cand": {"candidates": out_shape["retrieval_cand"][0],
+                              "runs": len(ms["retrieval_cand"]),
+                              "median_ms": statistics.median(
+                                  ms["retrieval_cand"])},
+           "launches": launches, "max_memory_allocated": peak,
+           "profiled": profiled}
+    del model, batches
+    return rec, copy_rec, captured
+
+
+def bag_phase(label: str, ids, table, reps: int = REPS) -> dict:
+    """The embedding-bag kernel against its plain version on one captured
+    lookup, with the ``F.embedding_bag`` yardstick and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    got = embedding_bag(ids, table)
+    want = embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    rec = _verdict(label, got, want, BAG_TOL)
+    del want
+    B, L = ids.shape
+    V, D = table.shape
+    esize = table.element_size()
+    valid = (ids >= 0) & (ids < V)
+    slots = int(valid.sum())
+    distinct = int(torch.unique(ids[valid]).numel())
+    # compulsory traffic: the ids and the output once, and each row the
+    # bags name once (distinct rows); the figure counting every slot's row
+    bytes_distinct = 4 * ids.numel() + (distinct + B) * D * esize
+    bytes_slots = 4 * ids.numel() + (slots + B) * D * esize
+    bound_bytes_ms = bytes_distinct / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = slots * D / SCALAR_OPS_PER_S * 1e3
+    kernel_ms = cuda_ms(lambda: embedding_bag(ids, table), reps)
+    plain_ms = cuda_ms(lambda: embedding_bag_ref(ids, table),
+                       max(3, reps // 4), warmup=1)
+    # yardstick: one F.embedding_bag call, its clamped ids and per-slot
+    # weights made before the timing (not part of the port)
+    lib_ids = ids.clamp(min=0)
+    weights = (ids >= 0).to(table.dtype)
+    library_ms = cuda_ms(lambda: F.embedding_bag(
+        lib_ids, table, mode="sum", per_sample_weights=weights), reps)
+    rec.update({"phase": "kernel", "name": "embedding_bag", "input": label,
+                "shape": {"B": B, "L": L, "V": V, "D": D},
+                "dtype": str(table.dtype), "valid_slots": slots,
+                "distinct_rows": distinct,
+                "rows_at_or_above_2_26": int((ids[valid] >= 1 << 26).sum()),
+                "bytes": bytes_distinct, "bytes_every_slot": bytes_slots,
+                "bound_every_slot_ms": bytes_slots / HBM_BYTES_PER_S * 1e3,
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                             else "operations")})
+    return rec
+
+
+def recsys_check() -> dict:
+    """Wide & Deep SMOKE in float32 (TF32 off): the serve and retrieval
+    outputs on cuda equal those on cpu."""
+    import torch
+    from repro_torch.configs import wide_deep as wd
+    from repro_torch.models import recsys
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "recsys check: TF32 matmuls are on")
+    cfg = wd.SMOKE
+    t0 = time.perf_counter()
+    on_card = recsys.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    on_host = recsys.WideDeep(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    errs = {}
+    for shape in ("serve_p99", "retrieval_cand"):
+        spec = wd.SMOKE_SHAPES[shape]
+        step = wd.make_step(cfg, spec.kind)
+        a = step(on_card, wd.make_batch(cfg, spec, SEED, "cuda")).cpu()
+        b = step(on_host, wd.make_batch(cfg, spec, SEED, "cpu"))
+        errs[shape] = float((a - b).abs().max())
+        require(bool(torch.isfinite(a).all()),
+                f"recsys check {shape}: non-finite outputs on cuda")
+        require(torch.allclose(a, b, rtol=RECSYS_RTOL, atol=RECSYS_ATOL),
+                f"recsys check {shape}: cuda and cpu differ (max abs err "
+                f"{errs[shape]})")
+    return {"phase": "check", "model": cfg.name, "dtype": str(cfg.dtype),
+            "max_abs_err": errs, "rtol": RECSYS_RTOL, "atol": RECSYS_ATOL,
+            "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------ report
 
 def kernel_entry(name: str, source: str, replaces: str, heaviest: dict,
@@ -841,7 +1115,7 @@ def run() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    require(len(built) == 3, f"expected 3 kernel sources, found "
+    require(len(built) == 4, f"expected 4 kernel sources, found "
                              f"{sorted(s.name for s in built)}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {src.stem: {
@@ -873,8 +1147,20 @@ def run() -> int:
     for rec in fa_phases + gmm_phases:
         emit(rec)
     del model, calls
+    gc.collect()        # the engine's step hooks form a reference cycle
     torch.cuda.empty_cache()
     emit(model_check())
+
+    recsys_rec, copy_rec, bags = recsys_path()
+    emit(copy_rec)
+    emit(recsys_rec)
+    bag_phases = [bag_phase(f"embedding_bag_{label}", *bags[label])
+                  for label in ("serve_p99", "serve_bulk")]
+    for rec in bag_phases:
+        emit(rec)
+    del bags
+    torch.cuda.empty_cache()
+    emit(recsys_check())
 
     # the kernels line reports the heaviest captured call of each kernel
     emit({"kernels": [
@@ -896,7 +1182,13 @@ def run() -> int:
             "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
             "src/repro/kernels/grouped_matmul/grouped_matmul.py:38",
             gmm_phases[0], gmm_phases,
-            serve_rec["launches"].get("grouped_matmul", 0))]})
+            serve_rec["launches"].get("grouped_matmul", 0)),
+        kernel_entry(
+            "embedding_bag",
+            "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+            "src/repro/kernels/embedding_bag/embedding_bag.py:50",
+            bag_phases[1], bag_phases,
+            recsys_rec["launches"].get("embedding_bag", 0))]})
     print(smi, flush=True)
     require(time.perf_counter() - t_start < 1200, "smoke run over 1200 s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

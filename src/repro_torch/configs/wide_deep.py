@@ -1,0 +1,91 @@
+"""wide-deep [arXiv:1606.07792]: 40 sparse fields, embed_dim 32,
+MLP 1024-512-256, concat interaction.
+
+The serve and retrieval parts of the reference's ``RecsysBundle`` as plain
+functions: ``make_step`` (the step callable of a shape kind),
+``host_batch``/``make_batch`` (the batch half of ``make_concrete``) and
+``model_flops``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.models import recsys
+from repro_torch.models.common import resolve_device
+
+SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
+    "serve_p99": ShapeSpec("serve_p99", "serve", {"batch": 512}),
+    "serve_bulk": ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                {"batch": 1, "n_candidates": 1_000_000}),
+}
+
+SMOKE_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "train", {"batch": 64}),
+    "serve_p99": ShapeSpec("serve_p99", "serve", {"batch": 16}),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                {"batch": 1, "n_candidates": 512}),
+}
+
+CONFIG = recsys.WideDeepConfig()
+SMOKE = recsys.WideDeepConfig(name="wide-deep-smoke",
+                              vocab_sizes=tuple([512] * 40),
+                              wide_vocab=1024, n_items=512, item_dim=32,
+                              mlp=(64, 32, 16))
+
+
+def make_step(cfg: recsys.WideDeepConfig, kind: str):
+    """``step(model, batch)`` of a serve or retrieval shape; training is
+    not ported."""
+    if kind == "serve":
+        return lambda model, batch: recsys.forward(model, batch, cfg)
+    if kind == "retrieval":
+        return lambda model, batch: recsys.retrieval_scores(model, batch,
+                                                            cfg)
+    raise NotImplementedError(f"shape kind {kind!r}: only serve and "
+                              f"retrieval are ported")
+
+
+def host_batch(cfg: recsys.WideDeepConfig, shape: ShapeSpec,
+               seed: int = 0) -> dict:
+    """The reference's concrete batch of ``shape`` as numpy arrays:
+    ``synthetic_batch`` (labels only for training), and for retrieval the
+    candidate ids in place of the wide ids."""
+    d = shape.dims
+    batch = recsys.synthetic_batch(cfg, d["batch"], seed=seed,
+                                   with_labels=(shape.kind == "train"))
+    if shape.kind == "retrieval":
+        batch.pop("wide_ids")
+        rng = np.random.default_rng(seed)
+        batch["candidate_ids"] = rng.integers(
+            0, cfg.n_items, size=d["n_candidates"]).astype(np.int32)
+    return batch
+
+
+def make_batch(cfg: recsys.WideDeepConfig, shape: ShapeSpec, seed: int = 0,
+               device=None) -> dict:
+    """``host_batch`` as tensors on ``device`` (``None`` means cuda)."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in host_batch(cfg, shape, seed).items()}
+
+
+def model_flops(cfg: recsys.WideDeepConfig, shape: ShapeSpec) -> float:
+    d = shape.dims
+    B = d["batch"]
+    deep_in = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
+    mlp = 0
+    prev = deep_in
+    for h in cfg.mlp:
+        mlp += 2 * prev * h
+        prev = h
+    bag = cfg.n_sparse * cfg.max_bag * cfg.embed_dim
+    fwd = B * (mlp + bag)
+    if shape.kind == "train":
+        return 3.0 * fwd
+    if shape.kind == "retrieval":
+        return fwd + 2.0 * d["n_candidates"] * cfg.item_dim
+    return float(fwd)

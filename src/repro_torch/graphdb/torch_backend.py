@@ -3,9 +3,9 @@
 Registers the ``"torch"`` PhysicalSpec (cuda) and, on request, one spec per
 other device (``torch_spec("cpu")`` -> ``"torch[cpu]"``), so plan caches and
 the per-store operator cache never mix devices.  It is the twin of the
-reference's ``JaxOperators`` (``repro/graphdb/jax_backend.py``) without
-fused chains.  OperatorSet v2 (DESIGN.md §7): every operator takes and
-returns tensors on the set's device, so the binding table stays there
+reference's ``JaxOperators`` (``repro/graphdb/jax_backend.py``).
+OperatorSet v2 (DESIGN.md §7): every operator takes and returns tensors
+on the set's device, so the binding table stays there
 across all plan steps — pattern loop and relational tail — and crosses to
 the host once, at delivery (``to_host``).
 
@@ -19,6 +19,11 @@ the host once, at delivery (``to_host``).
 - relational tail: ``join`` is a sort-merge join, ``group_reduce`` a
   sorted-run reduction (int64 SUM, float64 AVG), ``combine_keys`` dense
   lexicographic ranks — the same row order as the numpy reference backend.
+- ``chain_program`` -> ``FusedChain``: every ``ExpandChainNode`` (planned
+  by the ``fuse_expand_chain`` physical rule) runs as ONE eager program
+  (``torchops.build_fused_chain``) over pow2-bucketed capacities, with no
+  host sync until its end and every probe inside it one ``wcoj_intersect``
+  launch — one ``dispatch:fused_chain`` per chain.
 
 Staging contracts: vertex ids, CSR offsets and property columns live on
 the device as int32 (guarded at construction and at every upload);
@@ -30,11 +35,16 @@ not data transfers and are not recorded.  ``kernel_stats`` records one
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
+from repro_torch.core.pattern import BOTH
+from repro_torch.core.physical import (ChainStep, ExpandChainNode, ExpandNode,
+                                       JoinNode, PlanNode,
+                                       chain_fusable_predicates)
 from repro_torch.core.physical_spec import (CostParams, OperatorSet,
                                             PhysicalSpec, register_spec)
 from repro_torch.graphdb import torchops
@@ -46,6 +56,18 @@ _I64_MIN = np.iinfo(np.int64).min
 
 _AGGREGATES = ("COUNT", "SUM", "AVG", "MIN", "MAX")
 
+# fused-chain bucketing (DESIGN.md §8): frontier sizes and per-hop
+# capacities round up to powers of two with this floor, so the program
+# cache is logarithmic in the size range a chain shape ever sees.  There is
+# no volume cutoff: a chain is ready once its capacities are observed.
+_CHAIN_MIN_BUCKET = 8
+_CHAIN_PROGRAMS_PER_SHAPE = 4     # bucketed programs kept per chain
+_CHAIN_SHAPES = 64                # chain handles kept per operator set
+
+
+def _pow2(n: int, floor: int = 1) -> int:
+    return max(floor, 1 << max(int(n) - 1, 0).bit_length())
+
 
 def _require_device(device: torch.device):
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -54,11 +76,155 @@ def _require_device(device: torch.device):
             "available; pass device='cpu' to run the plain CPU versions")
 
 
+class FusedChain:
+    """One chain shape's fused-program handle (``OperatorSet.chain_program``).
+
+    Lifecycle: the engine's first execution of the chain runs the per-hop
+    loop and reports the observed per-hop expansion totals via
+    ``observe()``; that fixes the pow2 capacity schedule (``caps``), and
+    every later execution builds or reuses ONE program per (caps,
+    input-bucket, IN-set buckets, empty IN-sets) key and runs the whole
+    chain as one dispatch.  Capacities only grow (element-wise pow2 max);
+    an execution whose true totals overflow the current caps returns
+    ``None`` (the engine re-runs that one through the loop) and regrows the
+    schedule for the next execution."""
+
+    def __init__(self, ops: "TorchOperators", spec):
+        self.ops = ops
+        self.spec = spec
+        self.caps: tuple | None = None
+        self._progs: dict = {}  # (caps, in_bucket, vbuckets, empties) -> prog
+        # pinned handles survive the operator set's chain-LRU eviction
+        # (QueryServer hotness protection, DESIGN.md §9)
+        self.pinned = False
+
+    def ready(self) -> bool:
+        return self.caps is not None
+
+    def observe(self, sizes):
+        caps = tuple(_pow2(max(int(s), 1), _CHAIN_MIN_BUCKET) for s in sizes)
+        if self.caps is not None and len(self.caps) == len(caps):
+            caps = tuple(max(a, b) for a, b in zip(self.caps, caps))
+        self.caps = caps
+
+    # ------------------------------------------------------------ marshaling
+    def _build_desc(self):
+        """Static program description for ``torchops.build_fused_chain`` +
+        the ordered property-column requirements."""
+        spec = self.spec
+        vprops: list[str] = []
+        eprops: list[str] = []
+
+        def ref(r):
+            if r[0] == "vprop":
+                if r[2] not in vprops:
+                    vprops.append(r[2])
+                return ("vprop", r[1], vprops.index(r[2]))
+            if r[0] == "eprop":
+                if r[2] not in eprops:
+                    eprops.append(r[2])
+                return ("eprop", r[1], eprops.index(r[2]))
+            return r
+
+        s_map: dict[int, int] = {}
+        v_map: dict[int, int] = {}
+        for i, s in enumerate(spec.slots):
+            if s[0] == "scalar":
+                s_map[i] = len(s_map)
+            else:
+                v_map[i] = len(v_map)
+
+        def sig(p):
+            if p is None:
+                return None
+            if p[0] == "cmp":
+                return ("cmp", p[1], ref(p[2]), s_map[p[3]])
+            if p[0] == "in":
+                return ("in", ref(p[1]), v_map[p[2]])
+            return (p[0], tuple(sig(s) for s in p[1]))
+
+        hops = []
+        for h in spec.hops:
+            orients = tuple((o.lo, o.hi, o.tidx, o.csr.pos is not None)
+                            for o in h.orients)
+            probes = tuple((p.from_alias, p.edge_alias, p.orient.lo,
+                            p.orient.hi, p.vlo, p.vhi, p.orient.tidx,
+                            p.orient.csr.pos is not None)
+                           for p in h.probes)
+            hops.append((h.from_alias, h.alias, h.edge_alias, orients,
+                         probes, sig(h.pred_sig)))
+        return (spec.source, tuple(hops)), tuple(vprops), tuple(eprops)
+
+    # -------------------------------------------------------------- dispatch
+    def run(self, src, nrows, scalars, value_lists, max_rows):
+        """One fused dispatch; returns ``(rows, cols, n)`` with exact-size
+        device columns, or ``None`` after a capacity overflow (caps regrow;
+        the caller falls back to the per-hop loop for this execution)."""
+        ops = self.ops
+        n = int(nrows)
+        in_bucket = _pow2(n, _CHAIN_MIN_BUCKET)
+        vb = tuple(_pow2(max(len(v), 1)) for v in value_lists)
+        # a runtime-empty IN-set is a *static* program variant (matches
+        # nothing even under NOT/OR), part of the bucketed cache key
+        empties = tuple(i for i, v in enumerate(value_lists) if len(v) == 0)
+        key = (self.caps, in_bucket, vb, empties)
+        entry = self._progs.get(key)
+        if entry is not None:
+            self._progs[key] = self._progs.pop(key)   # LRU touch
+        else:
+            desc, vprops, eprops = self._build_desc()
+            fn = torchops.build_fused_chain(desc, self.caps, in_bucket,
+                                            ops._chain_probe,
+                                            empty_values=empties)
+            entry = (fn, vprops, eprops)
+            if len(self._progs) >= _CHAIN_PROGRAMS_PER_SHAPE:
+                self._progs.pop(next(iter(self._progs)))
+            self._progs[key] = entry
+            ops.kernel_stats.record("compile", "fused_chain")
+        fn, vprops, eprops = entry
+        src = ops._col(src).to(torch.int32)
+        if in_bucket > n:
+            src = torch.cat([src, src.new_zeros(in_bucket - n)])
+        csrs = tuple((tuple(ops._csr_dev(o.csr) for o in h.orients),
+                      tuple(ops._csr_dev(p.orient.csr) for p in h.probes))
+                     for h in self.spec.hops)
+        vp = tuple(ops._vprop_dev(p) for p in vprops)
+        ep = tuple(ops._eprop_dev(p) for p in eprops)
+        scal = ops.asarray(np.asarray(list(scalars), dtype=np.int32))
+        # eager code needs no static IN-set shapes: each list goes up as
+        # it is (an empty one is a dead argument of its static variant)
+        vals = tuple(ops.asarray(np.asarray(v if len(v) else [0],
+                                            dtype=np.int32))
+                     for v in value_lists)
+        cols, order, n_valid, needed = fn(src, n, csrs, vp, ep, scal, vals)
+        ops.kernel_stats.record("dispatch", "fused_chain")
+        ctl = torch.cat([needed, n_valid[None]]).tolist()   # control sync
+        needed_h, n_out = ctl[:-1], int(ctl[-1])
+        top = max(needed_h)
+        if top > _I32_MAX - 256:
+            raise RuntimeError(
+                f"intermediate blow-up: chain expansion would produce "
+                f"~{float(top):.3g} rows (beyond the int32 staging "
+                f"envelope)")
+        if top > max_rows:
+            raise RuntimeError(
+                f"intermediate blow-up: chain expansion would produce "
+                f"{top} rows > cap {max_rows}")
+        if any(a > c for a, c in zip(needed_h, self.caps)):
+            self.observe(needed_h)
+            return None
+        keep = order[:n_out]
+        rows = cols["__rows"][keep]
+        out = {k: v[keep] for k, v in cols.items()
+               if k not in ("__rows", self.spec.source)}
+        return rows, out, n_out
+
+
 class TorchOperators(OperatorSet):
     """Device-resident operator set: id columns are int32 tensors."""
 
     name = "torch"
-    supports_chains = False
+    supports_chains = True
     compiled = False
     index_dtype = torch.int32
 
@@ -74,6 +240,49 @@ class TorchOperators(OperatorSet):
         self._dev = {}    # id(csr) -> (csr, indptr, indices, pos | None)
         self._props = {}  # ("v"|"e", prop) -> device property column(s)
         self._z32 = torch.zeros(0, dtype=torch.int32, device=self.device)
+        self._chains = {}     # (chain signature, csr ids) -> FusedChain
+
+    # ---------------------------------------------------------- fused chains
+    @staticmethod
+    def _chain_key(spec):
+        return (spec.signature(),
+                tuple(id(o.csr) for h in spec.hops
+                      for o in list(h.orients) + [p.orient
+                                                  for p in h.probes]))
+
+    def chain_program(self, spec) -> FusedChain:
+        key = self._chain_key(spec)
+        prog = self._chains.get(key)
+        if prog is not None:
+            self._chains[key] = self._chains.pop(key)   # LRU touch
+        else:
+            if len(self._chains) >= _CHAIN_SHAPES:
+                victim = next((k for k, v in self._chains.items()
+                               if not v.pinned), None)
+                # all pinned: evict the coldest anyway (capacity wins)
+                self._chains.pop(victim if victim is not None
+                                 else next(iter(self._chains)))
+            prog = self._chains[key] = FusedChain(self, spec)
+        return prog
+
+    def pin_chain(self, spec, pinned: bool = True) -> bool:
+        """Protect (or release) an existing chain handle — with its bucketed
+        programs — from chain-LRU eviction.  Only handles that already
+        exist are pinned: a plan with no executed chain has nothing worth
+        protecting."""
+        prog = self._chains.get(self._chain_key(spec))
+        if prog is None:
+            return False
+        prog.pinned = bool(pinned)
+        return True
+
+    def _chain_probe(self, indptr, indices, rows, targets, pos_map):
+        """A membership probe inside a fused chain: one ``wcoj_intersect``
+        kernel launch on the card (the plain version on the CPU), counted
+        as ``probe:fused_chain`` beside the ``dispatch:intersect`` of the
+        per-operator probes."""
+        self.kernel_stats.record("probe", "fused_chain")
+        return wcoj_intersect(indptr, indices, rows, targets, pos_map)
 
     def block_ready(self, arrays):
         if self.device.type == "cuda":
@@ -333,18 +542,136 @@ class TorchOperators(OperatorSet):
         return first.to(torch.int32), dict(zip(names, outs))
 
 
-# Neutral cost weights, the numpy reference spec's: the port's plans equal
-# the reference numpy-spec plans.  Fit them from H100 runs before changing.
+# ------------------------------------------------------------ physical rule
+# ``fuse_expand_chain`` (with ``_hop_predicates``) is the reference's
+# physical rule (``repro/graphdb/jax_backend.py``), its logic copied
+# unchanged: the port fuses the chains the reference's rule fuses.
+
+def _hop_predicates(pattern, h: ExpandNode) -> list:
+    preds = list(pattern.vertices[h.new_alias].predicates or [])
+    for e in h.edges:
+        preds.extend(e.predicates or [])
+    return preds
+
+
+def fuse_expand_chain(node: PlanNode, ctx) -> PlanNode:
+    """Post-CBO physical rewrite (the ``PhysicalSpec.physical_rules`` hook):
+    fuse runs of >= 2 consecutive expansions into one ``ExpandChainNode``.
+
+    With device-resident tables (OperatorSet v2) every hop already stays on
+    device; chaining pays twice: the thin frontier carries only the hop
+    columns through the per-hop gathers, and the backend runs the whole
+    chain as ONE program — a single dispatch with no host sync between
+    hops, instead of one per hop (DESIGN.md §8).  A hop fuses when its
+    source alias is carried by the chain (or anchors it) and its
+    predicates are chain-fusable
+    (``core.physical.chain_fusable_predicates``: comparisons/IN-sets over
+    carried aliases against literals or parameters — the folded filter
+    still runs *at its own hop* inside the program, so intermediates stay
+    bounded); other predicates close the chain, keeping their hop on the
+    per-hop path.  A trailing expand-and-intersect whose probe edges read
+    carried aliases folds in as the chain's final WCOJ step.  Fusion is
+    packaging, not planning: ``ExpandChainNode.unfused()`` recovers the
+    exact pre-fusion plan, and results are row-identical."""
+    pattern = ctx.pattern()
+    fused = False
+
+    def rewrite(n: PlanNode) -> PlanNode:
+        if isinstance(n, JoinNode):
+            return dataclasses.replace(n, left=rewrite(n.left),
+                                       right=rewrite(n.right))
+        if not isinstance(n, ExpandNode):
+            return n
+        run = [n]                       # the maximal expand run, bottom-up
+        cur = n.child
+        while isinstance(cur, ExpandNode):
+            run.append(cur)
+            cur = cur.child
+        run.reverse()                   # execution order
+        out = rewrite(cur)
+        pending: list[tuple[ExpandNode, str]] = []
+
+        def flush():
+            nonlocal out, fused
+            if len(pending) >= 2:
+                fused = True
+                steps = [ChainStep(h.edges[0], frm, h.new_alias,
+                                   h.est_frequency, h.est_cost,
+                                   intersect_edges=tuple(h.edges[1:]))
+                         for h, frm in pending]
+                out = ExpandChainNode(out, steps,
+                                      est_frequency=steps[-1].est_frequency,
+                                      est_cost=steps[-1].est_cost)
+            else:
+                for h, frm in pending:
+                    out = ExpandNode(out, h.new_alias, h.edges,
+                                     est_frequency=h.est_frequency,
+                                     est_cost=h.est_cost)
+            pending.clear()
+
+        def preds_fusable(h, frm):
+            va = ({pending[0][1]} if pending else {frm})
+            va |= {x.new_alias for x, _ in pending} | {h.new_alias}
+            ea = {x.edges[0].alias for x, _ in pending} | \
+                 {e.alias for e in h.edges}
+            return chain_fusable_predicates(_hop_predicates(pattern, h),
+                                            va, ea)
+
+        for h in run:
+            frm = h.edges[0].other(h.new_alias) if h.edges else None
+            if len(h.edges) == 1:
+                fusable = preds_fusable(h, frm)
+                tail = False
+            else:
+                # expand-and-intersect: fold as the chain's final WCOJ step
+                # when every probe edge reads a carried alias and each is a
+                # pure filter (one orientation: directional, single triple)
+                carried = ({pending[0][1]} | {x.new_alias
+                                              for x, _ in pending}
+                           if pending else set())
+                tail = fusable = bool(pending) and frm in carried and all(
+                    e.other(h.new_alias) in carried
+                    and e.direction != BOTH and len(e.triples) == 1
+                    for e in h.edges[1:]) and preds_fusable(h, frm)
+            if fusable and not tail and pending:
+                carried = {pending[0][1]} | {x.new_alias for x, _ in pending}
+                if frm not in carried:
+                    # source bound below the current run (e.g. by a join
+                    # child): close this chain and anchor a new one here
+                    flush()
+                    fusable = preds_fusable(h, frm)
+            if fusable:
+                pending.append((h, frm))
+                if tail:                # the wcoj step ends its chain
+                    flush()
+            else:
+                flush()
+                out = ExpandNode(out, h.new_alias, h.edges,
+                                 est_frequency=h.est_frequency,
+                                 est_cost=h.est_cost)
+        flush()
+        return out
+
+    out = rewrite(node)
+    # no run fused: hand back the input so PhysicalRulesPass (and its
+    # trace) correctly records the plan as unchanged
+    return out if fused else node
+
+
+# Neutral cost weights, the numpy reference spec's: the port's plans, with
+# their chains unfused, equal the reference numpy-spec plans.  Fit them
+# from H100 runs before changing.
 TORCH_COST = CostParams()
 _DESCRIPTION = ("device-resident torch columns; eager torchops primitives + "
-                "the hand-written CUDA wcoj_intersect probe; sort-merge / "
-                "sorted-run relational tail")
+                "the hand-written CUDA wcoj_intersect probe; fused expand "
+                "chains; sort-merge / sorted-run relational tail")
 
 TORCH_SPEC = register_spec(PhysicalSpec(
     name="torch",
     make_operators=functools.partial(TorchOperators, device="cuda"),
     cost=TORCH_COST,
     description=_DESCRIPTION + " (cuda)",
+    physical_rules=(fuse_expand_chain,),
 ))
 
 _DEVICE_SPECS: dict[str, PhysicalSpec] = {"cuda": TORCH_SPEC}
@@ -362,6 +689,7 @@ def torch_spec(device: str | torch.device | None = None) -> PhysicalSpec:
             name=f"torch[{dev}]",
             make_operators=functools.partial(TorchOperators, device=dev),
             cost=TORCH_COST,
-            description=_DESCRIPTION + f" ({dev})"))
+            description=_DESCRIPTION + f" ({dev})",
+            physical_rules=(fuse_expand_chain,)))
         _DEVICE_SPECS[str(dev)] = spec
     return spec

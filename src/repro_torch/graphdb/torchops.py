@@ -7,6 +7,9 @@ tensor code that runs on whatever device its inputs live on.  They mirror
 need no static shapes: eager PyTorch has no trace cache to stabilise, so
 nothing is padded to pow2 buckets, and data-dependent output sizes are
 read back as scalars (control-plane syncs) right where they are needed.
+The fused chain program (``build_fused_chain``) is the exception: it
+keeps the reference's pow2 capacities, so a whole chain runs with one
+sync at its end.
 
 Id and position columns are int32; PyTorch's sorts, cumulative sums and
 searches return int64, which every function here narrows back on purpose.
@@ -164,3 +167,175 @@ def sortmerge_pairs(lorder, rorder, lo, cnt, total: int):
     sort-merge order (by left sorted position, then right)."""
     lrep, rpos = range_flatten(lo, cnt, total)
     return lorder[lrep].to(_I32), rorder[rpos].to(_I32)
+
+
+# ---------------------------------------------------------- fused chains
+#
+# One whole ExpandChainNode as one eager program over pow2-padded buffers,
+# the twin of ``jaxops.build_fused_chain``: row-major flattening, neighbour
+# and edge gathers, the trailing WCOJ membership probes (each one launch of
+# the ``wcoj_intersect`` kernel on the card) and the folded predicate masks
+# run with no host sync in between.  Each hop writes into a static capacity
+# (``caps[k]``); rows past a hop's true total are dead slots carried by a
+# validity mask, and filtered rows contribute zero degree to the next hop,
+# so emission order is the per-hop loop's orientation-major, row-major
+# order.  The program returns the padded columns, the stable order that
+# brings the valid rows to the front, their count and the per-hop totals;
+# the caller reads the counts in one sync.
+
+_CHAIN_CMP = {"=": lambda a, b: a == b, "<>": lambda a, b: a != b,
+              "<": lambda a, b: a < b, ">": lambda a, b: a > b,
+              "<=": lambda a, b: a <= b, ">=": lambda a, b: a >= b}
+
+_CHAIN_I32_MIN = -2147483648
+
+
+def take_clip(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(a, idx, mode="clip")``: indices clamped into ``a``'s
+    range; an empty ``a`` gives zeros (every such read is a dead slot)."""
+    n = a.shape[0]
+    if n == 0:
+        return torch.zeros(idx.shape, dtype=a.dtype, device=idx.device)
+    return a[idx.clamp(0, n - 1)]
+
+
+def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
+                      empty_values: tuple = ()):
+    """The whole-chain function of one static chain shape.
+
+    ``desc`` = ``(source_col, hops)``; each hop is ``(from_col, alias,
+    edge_alias, orients, probes, pred)`` with orients ``(lo, hi, tidx,
+    has_pos)``, probes ``(from_col, edge_alias, lo, hi, vlo, vhi, tidx,
+    has_pos)`` and ``pred`` a resolved predicate signature whose column
+    refs are ``("col", name) | ("vprop", name, idx) | ("eprop",
+    edge_alias, idx)`` and whose leaves read runtime slots.  ``probe`` is
+    the membership probe, ``wcoj_intersect``'s signature (the backend
+    passes the kernel's wrapper; the reference picked padded-ELL tiles or
+    a binary search by degree, the kernel searches the CSR at any
+    degree)."""
+    source_col, hops = desc
+
+    def eval_ref(ref, cols, vprops, eprops):
+        if ref[0] == "col":
+            return cols[ref[1]]
+        if ref[0] == "vprop":
+            _, name, pidx = ref
+            return take_clip(vprops[pidx], cols[name].to(_I64))
+        _, ealias, pidx = ref
+        offsets, flat = eprops[pidx]
+        pos = cols[f"{ealias}#p"]
+        if flat.shape[0] == 0:
+            return torch.full(pos.shape, _CHAIN_I32_MIN, dtype=_I32,
+                              device=pos.device)
+        base = take_clip(offsets, cols[f"{ealias}#t"].to(_I64))
+        return take_clip(flat, base.to(_I64) + pos.to(_I64))
+
+    def eval_pred(sig, cols, scalars, values, vprops, eprops):
+        kind = sig[0]
+        if kind == "cmp":
+            _, op, ref, slot = sig
+            return _CHAIN_CMP[op](eval_ref(ref, cols, vprops, eprops),
+                                  scalars[slot])
+        if kind == "in":
+            _, ref, vidx = sig
+            lhs = eval_ref(ref, cols, vprops, eprops)
+            if vidx in empty_values:     # static: empty IN-set matches nothing
+                return torch.zeros(lhs.shape, dtype=torch.bool,
+                                   device=lhs.device)
+            return torch.isin(lhs, values[vidx])
+        if kind == "not":
+            return ~eval_pred(sig[1][0], cols, scalars, values, vprops,
+                              eprops)
+        acc = eval_pred(sig[1][0], cols, scalars, values, vprops, eprops)
+        for s in sig[1][1:]:
+            m = eval_pred(s, cols, scalars, values, vprops, eprops)
+            acc = (acc & m) if kind == "and" else (acc | m)
+        return acc
+
+    def run(src, n0, csrs, vprops, eprops, scalars, values):
+        dev = src.device
+        cols = {"__rows": torch.arange(in_bucket, dtype=_I32, device=dev),
+                source_col: src}
+        valid = torch.arange(in_bucket, device=dev) < n0
+        needed = []
+        for k, (from_col, alias, ealias, orients, probes, pred) in \
+                enumerate(hops):
+            cap = caps[k]
+            frm = cols[from_col].to(_I64)
+            degs, row_starts = [], []
+            for j, (lo, hi, tidx, has_pos) in enumerate(orients):
+                indptr = csrs[k][0][j][0]
+                local = (frm - lo).clamp(0, max(indptr.shape[0] - 2, 0))
+                s0 = take_clip(indptr, local).to(_I64)
+                d = take_clip(indptr, local + 1).to(_I64) - s0
+                # the keyed-type range membership mask: rows of a
+                # mixed-type frontier outside [lo, hi) expand to nothing,
+                # exactly like the per-hop loop's nonzero() subset
+                in_range = valid & (frm >= lo) & (frm < hi)
+                degs.append(torch.where(in_range, d, 0))
+                row_starts.append(s0)
+            # exact int64 totals (the reference sums in int32 and guards
+            # with a float32 twin; the caller applies the same guard)
+            totals, offs = [], []
+            running = torch.zeros((), dtype=_I64, device=dev)
+            for d in degs:
+                offs.append(running)
+                totals.append(d.sum())
+                running = running + totals[-1]
+            needed.append(running)
+            pos_out = torch.arange(cap, dtype=_I64, device=dev)
+            acc_r = torch.zeros(cap, dtype=_I64, device=dev)
+            acc_nbr = torch.zeros(cap, dtype=_I32, device=dev)
+            acc_tv = torch.zeros(cap, dtype=_I32, device=dev)
+            acc_p = torch.zeros(cap, dtype=_I32, device=dev)
+            for j, (lo, hi, tidx, has_pos) in enumerate(orients):
+                _, indices, pos = csrs[k][0][j]
+                in_j = (pos_out >= offs[j]) & (pos_out < offs[j] + totals[j])
+                lp = pos_out - offs[j]
+                cum = torch.cumsum(degs[j], 0)
+                r = torch.searchsorted(cum, lp, right=True)
+                excl = take_clip(cum - degs[j], r)
+                flat = take_clip(row_starts[j], r) + (lp - excl)
+                nb = take_clip(indices, flat)
+                ep = take_clip(pos, flat) if has_pos else flat.to(_I32)
+                acc_r = torch.where(in_j, r, acc_r)
+                acc_nbr = torch.where(in_j, nb, acc_nbr)
+                acc_tv = torch.where(in_j, tidx, acc_tv)
+                acc_p = torch.where(in_j, ep, acc_p)
+            cols = {nm: take_clip(c, acc_r) for nm, c in cols.items()}
+            cols[alias] = acc_nbr
+            cols[f"{ealias}#t"] = acc_tv
+            cols[f"{ealias}#p"] = acc_p
+            valid = pos_out < torch.clamp(running, max=cap)
+            for pj, (p_from, p_ealias, lo, hi, vlo, vhi, tidx,
+                     has_pos) in enumerate(probes):
+                indptr, indices, pos = csrs[k][1][pj]
+                pfrm = cols[p_from]
+                n_rows = indptr.shape[0] - 1
+                local = (pfrm - lo).clamp(0, max(n_rows - 1, 0))
+                # rows outside the keyed/value type ranges fail the probe
+                # (the per-hop loop's membership masks); -2 never matches
+                # a real id (>= 0)
+                ok = (valid & (pfrm >= lo) & (pfrm < hi)
+                      & (cols[alias] >= vlo) & (cols[alias] < vhi))
+                tgt = torch.where(ok, cols[alias], -2).to(_I32)
+                if n_rows > 0:
+                    found, ep = probe(indptr, indices,
+                                      local.to(_I32).contiguous(),
+                                      tgt.contiguous(),
+                                      pos if has_pos else None)
+                else:                   # a keyed type with no vertices
+                    found = torch.zeros(cap, dtype=torch.bool, device=dev)
+                    ep = torch.zeros(cap, dtype=_I32, device=dev)
+                cols[f"{p_ealias}#t"] = torch.full((cap,), tidx, dtype=_I32,
+                                                   device=dev)
+                cols[f"{p_ealias}#p"] = ep     # 0 where nothing was found
+                valid = valid & found
+            if pred is not None:
+                valid = valid & eval_pred(pred, cols, scalars, values,
+                                          vprops, eprops)
+        # stable: valid rows first, each group in emission order
+        order = torch.sort((~valid).to(torch.uint8), stable=True).indices
+        return cols, order, valid.sum(), torch.stack(needed)
+
+    return run

@@ -27,16 +27,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def dense_init(shape, generator: torch.Generator, scale: float | None = None,
-               dtype=torch.float32, device=None) -> torch.Tensor:
-    """Truncated-normal (at +-2) fan-in init, drawn in fp32 on ``device``
-    (the generator's device) and cast to ``dtype``."""
+def dense_init_(t: torch.Tensor, generator: torch.Generator,
+                scale: float | None = None) -> torch.Tensor:
+    """``dense_init``'s law drawn into ``t`` in place (a float32 tensor on
+    the generator's device): truncated normal at +-2, times ``scale``
+    (default 1/sqrt(fan-in))."""
+    shape = t.shape
     fan_in = shape[0] if len(shape) == 2 else (
         shape[-2] if len(shape) >= 2 else shape[0])
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(dtype)
+    return t.mul_(scale)
+
+
+def dense_init(shape, generator: torch.Generator, scale: float | None = None,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """Truncated-normal (at +-2) fan-in init, drawn in fp32 on ``device``
+    (the generator's device) and cast to ``dtype``.  Scaled in place and
+    cast only to another dtype, so a float32 draw holds one copy."""
+    t = dense_init_(torch.empty(shape, dtype=torch.float32, device=device),
+                    generator, scale)
+    return t if dtype == torch.float32 else t.to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

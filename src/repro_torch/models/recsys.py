@@ -1,0 +1,229 @@
+"""Wide & Deep (Cheng et al., arXiv:1606.07792), the port of
+``src/repro/models/recsys.py``: the serve (pointwise CTR logits) and
+retrieval (one query against many candidates) forward passes.
+
+The bag lookups of the deep tower go through the hand-written CUDA
+embedding-bag kernel (``kernels/embedding_bag``): one launch per forward
+for all ``B * n_sparse`` bags.  The MLP, the wide part and the retrieval
+scoring stay ``torch.matmul`` and plain gathers in fp32, as the reference
+left them to XLA outside any Pallas kernel (with TF32 off, the PyTorch
+default, so the card agrees with the CPU).
+
+Parameters live in an ``nn.Module`` under the reference's tree names
+(``params_from_reference`` copies a JAX tree over), in ``cfg.dtype``; the
+reference keeps fp32 masters and casts them to ``cfg.dtype`` at use, which
+is the same numbers.  They serve: they do not require gradients.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.kernels.embedding_bag.ops import embedding_bag as bag_sum
+from repro_torch.models.common import dense_init, dense_init_, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class WideDeepConfig:
+    name: str = "wide-deep"
+    n_sparse: int = 40
+    embed_dim: int = 32
+    mlp: tuple[int, ...] = (1024, 512, 256)
+    n_dense: int = 13
+    max_bag: int = 8                 # multi-hot bag size per field
+    # per-field vocabulary sizes (production-skewed mix)
+    vocab_sizes: tuple[int, ...] = ()
+    wide_vocab: int = 1_000_000
+    n_wide: int = 80
+    # retrieval head
+    n_items: int = 1_000_000
+    item_dim: int = 256
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if not self.vocab_sizes:
+            sizes = ([50_000_000] * 2 + [1_000_000] * 6 + [100_000] * 12
+                     + [10_000] * 20)
+            object.__setattr__(self, "vocab_sizes",
+                               tuple(sizes[:self.n_sparse]))
+        if len(self.vocab_sizes) != self.n_sparse:
+            raise ValueError(f"{len(self.vocab_sizes)} vocab sizes for "
+                             f"{self.n_sparse} sparse fields")
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.vocab_sizes)
+
+    def field_offsets(self) -> np.ndarray:
+        return np.cumsum([0] + list(self.vocab_sizes))[:-1].astype(np.int64)
+
+    def param_count(self) -> int:
+        deep_in = self.n_sparse * self.embed_dim + self.n_dense
+        mlp = 0
+        prev = deep_in
+        for h in self.mlp:
+            mlp += prev * h + h
+            prev = h
+        return (self.total_rows * self.embed_dim + self.wide_vocab
+                + mlp + prev + self.n_items * self.item_dim
+                + prev * self.item_dim)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Dense(nn.Module):
+    """One MLP layer: ``w [in, out]``, ``b [out]``."""
+
+    def __init__(self, n_in: int, n_out: int, dtype, device):
+        super().__init__()
+        self.w = _param((n_in, n_out), dtype, device)
+        self.b = _param((n_out,), dtype, device)
+
+
+class WideDeep(nn.Module):
+    """The parameter tree (uninitialised: ``init_params`` or
+    ``params_from_reference`` fill it), plus the per-field row offsets
+    into the concatenated ``table`` as a device buffer."""
+
+    def __init__(self, cfg: WideDeepConfig, device):
+        super().__init__()
+        dt = cfg.dtype
+        prev = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
+        self.table = _param((cfg.total_rows, cfg.embed_dim), dt, device)
+        self.wide = _param((cfg.wide_vocab,), dt, device)
+        self.wide_b = _param((), dt, device)
+        layers = []
+        for h in cfg.mlp:
+            layers.append(Dense(prev, h, dt, device))
+            prev = h
+        self.mlp = nn.ModuleList(layers)
+        self.out_w = _param((prev, 1), dt, device)
+        self.items = _param((cfg.n_items, cfg.item_dim), dt, device)
+        self.user_proj = _param((prev, cfg.item_dim), dt, device)
+        self.register_buffer("offsets", torch.as_tensor(
+            cfg.field_offsets(), device=device), persistent=False)
+
+
+@torch.no_grad()
+def init_params(cfg: WideDeepConfig, generator: torch.Generator,
+                device=None) -> WideDeep:
+    """Random weights drawn from ``generator`` (on ``device``) with the
+    reference's laws: truncated-normal fan-in matrices, the table and the
+    wide weights at scale 0.01, the items at 0.05, zero biases.  A float32
+    parameter is drawn in place, so the table is never held twice.
+    ``device=None`` means cuda."""
+    dev = resolve_device(device)
+    model = WideDeep(cfg, dev)
+
+    def draw(p, scale=None):
+        if p.dtype == torch.float32:
+            dense_init_(p, generator, scale)
+        else:
+            p.copy_(dense_init(tuple(p.shape), generator, scale,
+                               device=dev))
+
+    draw(model.table, 0.01)
+    draw(model.wide, 0.01)
+    model.wide_b.zero_()
+    for layer in model.mlp:
+        draw(layer.w)
+        layer.b.zero_()
+    draw(model.out_w)
+    draw(model.items, 0.05)
+    draw(model.user_proj)
+    return model
+
+
+@torch.no_grad()
+def params_from_reference(cfg: WideDeepConfig, arrays: dict,
+                          device=None) -> WideDeep:
+    """The reference's parameter tree (``table``, ``wide``, ``wide_b``,
+    ``mlp`` as a list of ``{"w", "b"}``, ``out_w``, ``items``,
+    ``user_proj``; numpy arrays) as the port's module on ``device``
+    (``None`` means cuda)."""
+    model = WideDeep(cfg, resolve_device(device))
+    if len(arrays["mlp"]) != len(model.mlp):
+        raise ValueError(f"{len(arrays['mlp'])} reference MLP layers, "
+                         f"config has {len(model.mlp)}")
+
+    def put(p, a):
+        a = np.asarray(a, dtype=np.float32)
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"shape {a.shape}, port {tuple(p.shape)}")
+        p.copy_(torch.tensor(a))
+
+    for n in ("table", "wide", "wide_b", "out_w", "items", "user_proj"):
+        put(getattr(model, n), arrays[n])
+    for layer, lp in zip(model.mlp, arrays["mlp"]):
+        put(layer.w, lp["w"])
+        put(layer.b, lp["b"])
+    return model
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """ids ``[B, F, bag]`` (-1 pad, per-field local ids) -> ``[B, F*dim]``:
+    the field offsets are added where ``ids >= 0`` (the sums stay within
+    int32: the largest row is ``total_rows - 1``), and all ``B * F`` bags
+    go through one embedding-bag kernel call."""
+    B, F_, L = ids.shape
+    gidx = torch.where(ids >= 0, ids + offsets[None, :, None].to(ids.dtype),
+                       -1).to(torch.int32)
+    bags = bag_sum(gidx.reshape(B * F_, L).contiguous(), table)
+    return bags.reshape(B, F_ * table.shape[1])
+
+
+def deep_tower(model: WideDeep, batch: dict,
+               cfg: WideDeepConfig) -> torch.Tensor:
+    x = embedding_bag(model.table, batch["sparse_ids"], model.offsets)
+    x = torch.cat([x, batch["dense"].to(cfg.dtype)], dim=-1)
+    for layer in model.mlp:
+        x = torch.relu(x @ layer.w + layer.b)
+    return x                                            # [B, mlp[-1]]
+
+
+def forward(model: WideDeep, batch: dict, cfg: WideDeepConfig) -> torch.Tensor:
+    """Pointwise CTR logits ``[B]``."""
+    deep = deep_tower(model, batch, cfg) @ model.out_w
+    wide_ids = batch["wide_ids"]
+    wvals = model.wide[wide_ids.clamp(min=0).to(torch.int64)]
+    wide = (wvals * (wide_ids >= 0)).sum(dim=-1) + model.wide_b
+    return deep[:, 0] + wide
+
+
+def retrieval_scores(model: WideDeep, batch: dict,
+                     cfg: WideDeepConfig) -> torch.Tensor:
+    """One query against ``candidate_ids [n_cand]`` -> scores ``[n_cand]``."""
+    user = deep_tower(model, batch, cfg) @ model.user_proj   # [1, item_dim]
+    cand = model.items.index_select(
+        0, batch["candidate_ids"].to(torch.int64))      # [n_cand, item_dim]
+    return cand @ user[0]
+
+
+def synthetic_batch(cfg: WideDeepConfig, batch_size: int, seed: int = 0,
+                    with_labels: bool = True) -> dict:
+    """Host-side synthetic click-log batch (skewed ids, learnable signal)."""
+    rng = np.random.default_rng(seed)
+    ids = np.empty((batch_size, cfg.n_sparse, cfg.max_bag), np.int32)
+    for f, v in enumerate(cfg.vocab_sizes):
+        z = rng.zipf(1.2, size=(batch_size, cfg.max_bag)).astype(np.int64)
+        ids[:, f] = (z - 1) % v
+    nbag = rng.integers(1, cfg.max_bag + 1, size=(batch_size, cfg.n_sparse))
+    mask = np.arange(cfg.max_bag)[None, None] < nbag[..., None]
+    ids = np.where(mask, ids, -1)
+    dense = rng.normal(size=(batch_size, cfg.n_dense)).astype(np.float32)
+    wide = rng.integers(0, cfg.wide_vocab,
+                        size=(batch_size, cfg.n_wide)).astype(np.int32)
+    out = {"sparse_ids": ids, "dense": dense, "wide_ids": wide}
+    if with_labels:
+        # label depends on dense features + a few id parities -> learnable
+        sig = dense[:, 0] + 0.5 * dense[:, 1] + 0.3 * (ids[:, 0, 0] % 2)
+        out["labels"] = (sig > 0.4).astype(np.float32)
+    return out

@@ -1,16 +1,17 @@
 """The port's whole slice on the CPU — store -> GOpt (Statistics + GLogue)
 -> parse -> type inference -> RBO -> CBO -> Engine on the torch operator
 set -> delivery — held against the reference ``GOpt`` on the same store:
-GLogue frequencies equal, plans equal the reference numpy-spec plans, and
-results are row-identical to the reference numpy backend for every parity
-query (and to the reference jax backend for a few)."""
+GLogue frequencies equal, plans equal the reference numpy-spec plans (with
+fused chains unfolded), and results are row-identical to the reference
+numpy backend for every parity query (and to the reference jax backend for
+a few)."""
 import numpy as np
 import pytest
 
 from benchmarks import queries as Q
 from repro.core.physical import plan_signature as ref_plan_signature
 from repro_torch.core.gopt import GOpt
-from repro_torch.core.physical import plan_signature
+from repro_torch.core.physical import plan_signature, unfuse_chains
 from repro_torch.core.physical_spec import TransferStats
 from repro_torch.graphdb.storage import export_store, import_store
 
@@ -51,11 +52,14 @@ def test_glogue_frequencies_equal_reference(port_gopt, gopt_small):
 @pytest.mark.parametrize("name,text,params", PARITY_QUERIES, ids=IDS)
 def test_plan_equals_reference_numpy_plan(port_gopt, gopt_small, name, text,
                                           params):
+    """The port's plans, with their fused chains unfolded, are the
+    reference numpy-spec plans (both specs cost alike; the torch specs add
+    the ``fuse_expand_chain`` physical rule)."""
     ref = gopt_small.optimize(text, params, backend="numpy")
     got = port_gopt.optimize(text, params)
     assert got.invalid == ref.invalid
     if not ref.invalid:
-        assert plan_signature(got.physical) == \
+        assert plan_signature(unfuse_chains(got.physical)) == \
             ref_plan_signature(ref.physical)
 
 
@@ -87,10 +91,16 @@ def test_two_hop_query_stays_on_the_device(port_gopt):
 
 
 def test_cycle_query_goes_through_the_probe(port_gopt):
+    """The closing edge is a WCOJ probe: an ``intersect`` dispatch on the
+    per-hop loop, a probe inside the program once the chain is fused."""
     opt = port_gopt.optimize(Q.QC["Qc1a"])
     assert "x2" in plan_signature(opt.physical)
-    _, stats = port_gopt.execute(opt)
+    _, stats = port_gopt.execute(opt, chain_dispatch=False)
     assert stats.kernels.get("dispatch:intersect", 0) > 0
+    port_gopt.execute(opt)                  # measures the chain, if new
+    _, stats = port_gopt.execute(opt)
+    assert stats.kernels.get("dispatch:fused_chain", 0) == 1
+    assert stats.kernels.get("probe:fused_chain", 0) > 0
 
 
 def test_prepared_batch_matches_single_runs(port_gopt):

@@ -45,7 +45,12 @@ def test_port_imports_no_jax_reference_or_benchmarks(path):
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"torch_backend.py", "engine.py", "gopt.py", "ops.py",
-            "transformer.py", "chip_smoke.py"} <= names
+            "transformer.py", "chip_smoke.py", "recsys.py", "wide_deep.py",
+            "base.py", "torchops.py"} <= names
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    assert {p.parent.name for p in PORT_FILES if p.parent.parent == kernels
+            and p.name == "ops.py"} == {"wcoj_intersect", "flash_attention",
+                                        "grouped_matmul", "embedding_bag"}
 
 
 def test_gopt_without_device_raises_without_a_card(small_ldbc):

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: each against its plain version, and
-the LM on cuda against the LM on cpu.  Every test here is marked ``gpu``
+"""The port's CUDA kernels on the card: each against its plain version; the
+LM and Wide & Deep on cuda against the CPU; fused graph chains (K1 probes
+inside) on cuda against the CPU.  Every test here is marked ``gpu``
 and skips itself without a card.  The file imports neither jax nor the
 reference package, so it runs on a machine that has only PyTorch:
 
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
@@ -147,3 +150,135 @@ def test_model_on_the_card_matches_the_cpu(card, name):
         before.get("flash_attention", 0) + 2 * cfg.n_layers
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
+
+
+# --------------------------------------------------------- K4 embedding bag
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,V,D", [(100, 6, 1000, 32), (32, 1, 64, 8),
+                                     (7, 12, 333, 16), (20480, 8, 5000, 32),
+                                     (3, 40, 77, 80)])
+def test_embedding_bag_kernel_matches_plain_version(card, B, L, V, D,
+                                                    dtype):
+    """Ids of every kind (padding, < -1, >= V) and D both below and above
+    one warp's width; 1e-4 in fp32 (the reference's), 1e-2 in bf16 (one
+    rounding of the output)."""
+    g = torch.Generator(device=card).manual_seed(B + V)
+    ids = torch.randint(-3, V + 5, (B, L), generator=g, device=card,
+                        dtype=torch.int32)
+    table = torch.randn(V, D, generator=g, device=card).to(dtype)
+    before = kernels.LAUNCHES.get("embedding_bag", 0)
+    got = embedding_bag(ids, table)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, D)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(),
+                               embedding_bag_ref(ids, table).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_addresses_past_2_to_the_31(card):
+    """A table of more than 2^31 elements (bf16 [70M, 32], 4.5 GB) read
+    near its end: a 32-bit row offset would wrap."""
+    V, D = 70_000_000, 32
+    assert V * D > 2**31
+    g = torch.Generator(device=card).manual_seed(7)
+    table = torch.empty(V, D, dtype=torch.bfloat16, device=card)
+    table.normal_(generator=g)
+    ids = torch.randint(V - 4_000_000, V, (512, 8), generator=g,
+                        device=card, dtype=torch.int32)
+    ids[:, -1] = -1
+    ids[0] = V - 1
+    got = embedding_bag(ids, table)
+    want = embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_raises_instead_of_falling_back(card):
+    ids = torch.zeros(4, 3, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="table on cpu"):
+        embedding_bag(ids, torch.ones(5, 8))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        embedding_bag(ids, torch.ones(5, 8, device=card).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(ids, torch.ones(8, 5, device=card).t())
+
+
+@pytest.mark.gpu
+def test_wide_deep_on_the_card_matches_the_cpu(card):
+    """SMOKE in float32 (TF32 off): serve and retrieval forwards on cuda
+    (one K4 launch each) equal the plain versions on the cpu, rtol 1e-4 /
+    atol 1e-5."""
+    from repro_torch.configs import wide_deep as wd
+    from repro_torch.models import recsys
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = wd.SMOKE
+    on_card = recsys.init_params(cfg, torch.Generator(card).manual_seed(0),
+                                 device=card)
+    on_host = recsys.WideDeep(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    before = kernels.LAUNCHES.get("embedding_bag", 0)
+    for shape in ("serve_p99", "retrieval_cand"):
+        spec = wd.SMOKE_SHAPES[shape]
+        step = wd.make_step(cfg, spec.kind)
+        got = step(on_card, wd.make_batch(cfg, spec, seed=1, device=card))
+        want = step(on_host, wd.make_batch(cfg, spec, seed=1, device="cpu"))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    assert kernels.LAUNCHES["embedding_bag"] == before + 2
+
+
+# ------------------------------------------------ fused chains with K1 inside
+
+CHAIN_QUERIES = [
+    ("ic1", "MATCH (p:PERSON)-[:KNOWS*2]-(friend:PERSON) "
+            "WHERE p.id = $pid RETURN friend, count(p) AS c "
+            "ORDER BY c DESC LIMIT 20", {"pid": 5}),
+    ("ic12", "MATCH (p:PERSON)-[:KNOWS]-(friend:PERSON), "
+             "(friend)<-[:HASCREATOR]-(comment:COMMENT), "
+             "(comment)-[:REPLYOF]->(post:POST), (post)-[:HASTAG]->(t:TAG), "
+             "(t)-[:HASTYPE]->(tc:TAGCLASS) WHERE p.id = $pid "
+             "RETURN friend, count(comment) AS cnt "
+             "ORDER BY cnt DESC LIMIT 20", {"pid": 5}),
+    ("triangle", "Match (a:PERSON)-[:KNOWS]->(b:PERSON)-[:KNOWS]->"
+                 "(c:PERSON), (a)-[:KNOWS]->(c) Return count(a) AS t", None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,text,params", CHAIN_QUERIES,
+                         ids=[q[0] for q in CHAIN_QUERIES])
+def test_fused_chains_on_the_card_match_the_cpu(card, name, text, params):
+    """On a small LDBC store the fused chain on cuda (its probes launching
+    K1) is row-identical to the loop on cuda and the fused chain on the
+    cpu."""
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.graphdb.ldbc import generate_ldbc
+    store = generate_ldbc(sf=0.1, seed=7)
+    gc, gh = GOpt(store), GOpt(store, device="cpu")
+    oc, oh = gc.optimize(text, params), gh.optimize(text, params)
+    gc.execute(oc, params=params)                        # measuring runs
+    gh.execute(oh, params=params)
+    before = kernels.LAUNCHES.get("wcoj_intersect", 0)
+    fused, st = gc.execute(oc, params=params)
+    torch.cuda.synchronize()
+    assert st.kernels.get("dispatch:fused_chain", 0) >= 1, st.kernels
+    probes = st.kernels.get("probe:fused_chain", 0)
+    assert kernels.LAUNCHES.get("wcoj_intersect", 0) - before == \
+        probes + st.kernels.get("dispatch:intersect", 0)
+    if name == "triangle":
+        assert probes >= 1
+    loop, _ = gc.execute(oc, params=params, chain_dispatch=False)
+    host, sh = gh.execute(oh, params=params)
+    assert sh.kernels.get("dispatch:fused_chain", 0) >= 1
+    for other in (loop, host):
+        assert fused.nrows == other.nrows and set(fused.cols) == \
+            set(other.cols)
+        for k in fused.cols:
+            np.testing.assert_array_equal(np.asarray(fused.cols[k]),
+                                          np.asarray(other.cols[k]))
