@@ -31,14 +31,17 @@ Phases, each printing one JSON line:
              ``ServeEngine`` with 8 slots of 4096 positions answering 16
              requests (prompts of 128-2048 tokens, 64 new tokens each);
              every attention goes through the FlashAttention kernel and
-             every expert product through the grouped-matmul kernel;
+             every expert product through the grouped-matmul kernel's
+             tensor-core route (``tc``);
 8. kernel  — each of those two kernels on calls captured in phase 7 (the
              longest prompt's prefill and one decode tick for attention;
-             that prefill's w1 and w2 products and one decode product for
-             the grouped matmul), against its plain version within the
+             that prefill's and that tick's w1 and w2 products for the
+             grouped matmul), against its plain version within the
              reference's tolerance, with the same timings and bounds as
              phase 3 (``library_ms``: one ``scaled_dot_product_attention``
-             with an explicit mask, one ``torch.bmm``);
+             with an explicit mask, one ``torch.bmm``), the grouped
+             matmul's route and its share of the bound; then the scalar
+             route (``simt``) on the decode w1 product cast to fp32;
 9. check   — OLMoE at full width but 2 layers, in float32 with TF32 off:
              a 256-token prefill and 4 teacher-forced decode steps give the
              same logits on ``device="cuda"`` and ``device="cpu"``;
@@ -92,6 +95,10 @@ N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (128, 2048), 64
 CAPTURE_TICK = 32   # the decode tick whose kernel calls are captured
 # the reference's bf16 tolerances (tests/test_kernels.py)
 ATTENTION_TOL, GMM_TOL = 2e-2, 3e-2
+# the scalar route in fp32 (the reference's fp32 tolerance)
+GMM_FP32_TOL = 1e-4
+GMM_BATCH = 10      # grouped-matmul calls per timed run
+PROFILE_ATTEMPTS = 3  # traces of a step before an empty one fails
 # the float32 model check: layers, prompt, decode steps, tolerances
 CHECK_LAYERS, CHECK_PROMPT, CHECK_STEPS = 2, 256, 4
 CHECK_RTOL, CHECK_ATOL = 2e-3, 2e-4
@@ -222,9 +229,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, batch: int = 1) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, each bracketed by
-    CUDA events on the current stream."""
+    CUDA events on the current stream.  With ``batch`` > 1 a run is that
+    many calls back to back, divided by their count: the device's time per
+    call once the host's launch overhead hides behind the queued work."""
     import torch
     for _ in range(warmup):
         fn()
@@ -233,10 +242,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -617,7 +627,7 @@ def serve_path() -> tuple[dict, object, dict]:
         key = capture_key("grouped_matmul")
         names = {mlp0.w1.data_ptr(): "w1", mlp0.w2.data_ptr(): "w2"}
         which = names.get(w.data_ptr())
-        if key and which and (which == "w1" or key.endswith("prefill")):
+        if key and which:
             key = f"{key}_{which}"
             if key not in captured:
                 captured[key] = (x.clone(), w)
@@ -675,10 +685,16 @@ def serve_path() -> tuple[dict, object, dict]:
         require(launches.get(name, 0) == per_step * steps,
                 f"serve: {launches.get(name, 0)} {name} launches, expected "
                 f"{per_step} x {steps} steps")
+    # every expert product of the serving path takes the tensor-core route
+    tc = launches.get("grouped_matmul.tc", 0)
+    require(tc == 3 * cfg.n_layers * steps,
+            f"serve: {tc} grouped_matmul.tc launches, expected "
+            f"{3 * cfg.n_layers} x {steps} steps")
     require(set(captured) == {
         "flash_attention_prefill", "flash_attention_decode",
         "grouped_matmul_prefill_w1", "grouped_matmul_prefill_w2",
-        "grouped_matmul_decode_w1"}, f"serve: captured {sorted(captured)}")
+        "grouped_matmul_decode_w1", "grouped_matmul_decode_w2"},
+        f"serve: captured {sorted(captured)}")
     longest_prompt = next(r.prompt for r in reqs if len(r.prompt) == longest)
     profiled = {
         "decode": profile_step(real_decode, torch.zeros(
@@ -707,40 +723,47 @@ def serve_path() -> tuple[dict, object, dict]:
 def profile_step(step, *args) -> dict:
     """One more step (warmed up once) under ``torch.profiler``:
     its host-clock ms, the device's kernel ms by kind, and the device's
-    idle share of the step."""
+    idle share of the step.  A trace that holds no device activity (CUPTI
+    dropped it) is taken again, up to ``PROFILE_ATTEMPTS`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0,
-             "embedding_bag": 0.0, "matmul": 0.0, "other": 0.0}
-    kernels, other = 0, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kernels += ev.count
-        name, ms = ev.key.lower(), ev.self_device_time_total / 1e3
-        kind = ("flash_attention" if "attn_" in name
-                else "grouped_matmul" if "gmm_kernel" in name
-                else "embedding_bag" if "embedding_bag_kernel" in name
-                else "matmul" if any(s in name for s in (
-                    "gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas"))
-                else "other")
-        kinds[kind] += ms
-        if kind == "other":
-            other.append((ms, ev.count, ev.key[:60]))
-    device_ms = sum(kinds.values())
-    require(device_ms > 0, "profiler recorded no device time")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0,
+                 "embedding_bag": 0.0, "matmul": 0.0, "other": 0.0}
+        kernels, other = 0, []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            kernels += ev.count
+            name, ms = ev.key.lower(), ev.self_device_time_total / 1e3
+            kind = ("flash_attention" if "attn_" in name
+                    else "grouped_matmul" if "gmm_kernel" in name
+                    else "embedding_bag" if "embedding_bag_kernel" in name
+                    else "matmul" if any(s in name for s in (
+                        "gemm", "gemv", "nvjet", "cutlass", "xmma",
+                        "cublas"))
+                    else "other")
+            kinds[kind] += ms
+            if kind == "other":
+                other.append((ms, ev.count, ev.key[:60]))
+        device_ms = sum(kinds.values())
+        if device_ms > 0:
+            break
+    require(device_ms > 0, f"profiler recorded no device time in "
+                           f"{PROFILE_ATTEMPTS} traces")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": max(0.0, 1 - device_ms / wall_ms),
             "device_kernels": kernels, "device_ms_by_kind": kinds,
-            "top_other": sorted(other, reverse=True)[:5]}
+            "top_other": sorted(other, reverse=True)[:5],
+            "attempts": attempt}
 
 
 def _verdict(label: str, got, want, tol: float) -> dict:
@@ -806,31 +829,53 @@ def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     return rec
 
 
-def gmm_phase(label: str, x, w, reps: int = REPS) -> dict:
+def gmm_phase(label: str, x, w, want_route: str, tol: float = GMM_TOL,
+              reps: int = REPS) -> dict:
     """The grouped-matmul kernel against its plain version on one captured
-    product, with the ``torch.bmm`` yardstick and the bound."""
+    product: the route it must take (its launch counted there), the
+    ``torch.bmm`` yardstick, the bound and the share of it reached."""
     import torch
-    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    from repro_torch import kernels
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    which = route(x, w)
+    require(which == want_route,
+            f"{label}: route {which}, expected {want_route}")
+    counted = kernels.LAUNCHES.get(f"grouped_matmul.{which}", 0)
     got = grouped_matmul(x, w)
     want = grouped_matmul_ref(x, w)
     torch.cuda.synchronize()
-    rec = _verdict(label, got, want, GMM_TOL)
+    require(kernels.LAUNCHES.get(f"grouped_matmul.{which}", 0)
+            == counted + 1, f"{label}: no grouped_matmul.{which} launch")
+    rec = _verdict(label, got, want, tol)
     G, M, K = x.shape
     N = w.shape[2]
     nbytes = x.element_size() * (x.numel() + w.numel() + G * M * N)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = 2 * G * M * K * N / BF16_OPS_PER_S * 1e3
+    # bf16 products on the tensor cores; fp32 ones outside them
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    bound_ops_ms = 2 * G * M * K * N / rate * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    # kernel and yardstick timed GMM_BATCH calls at a time: a decode
+    # product (~0.1 ms) is near the wrapper's host time, which one call per
+    # event pair would add to it (kept as kernel_ms_single)
+    kernel_ms = cuda_ms(lambda: grouped_matmul(x, w), reps, batch=GMM_BATCH)
+    library_ms = cuda_ms(lambda: torch.bmm(x, w), reps, batch=GMM_BATCH)
     rec.update({"phase": "kernel", "name": "grouped_matmul", "input": label,
+                "route": which,
                 "shape": {"G": G, "M": M, "K": K, "N": N},
                 "dtype": str(x.dtype), "bytes": nbytes,
-                "kernel_ms": cuda_ms(lambda: grouped_matmul(x, w), reps),
+                "kernel_ms": kernel_ms,
+                "kernel_ms_single": cuda_ms(lambda: grouped_matmul(x, w),
+                                            reps),
                 "plain_ms": cuda_ms(lambda: grouped_matmul_ref(x, w),
                                     max(3, reps // 4), warmup=1),
-                "library_ms": cuda_ms(lambda: torch.bmm(x, w), reps),
-                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "library_ms": library_ms,
+                "bound_ms": bound_ms,
                 "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                             else "operations")})
+                             else "operations"),
+                "pct_of_bound": 100 * bound_ms / kernel_ms,
+                "kernel_over_library": kernel_ms / library_ms})
     return rec
 
 
@@ -1142,10 +1187,17 @@ def run() -> int:
     emit(serve_rec)
     fa_phases = [attention_phase(label, *calls[f"flash_attention_{label}"])
                  for label in ("prefill", "decode")]
-    gmm_phases = [gmm_phase(label, *calls[f"grouped_matmul_{label}"])
-                  for label in ("prefill_w1", "prefill_w2", "decode_w1")]
+    gmm_phases = [gmm_phase(label, *calls[f"grouped_matmul_{label}"], "tc")
+                  for label in ("prefill_w1", "prefill_w2", "decode_w1",
+                                "decode_w2")]
     for rec in fa_phases + gmm_phases:
         emit(rec)
+    # the scalar route, on decode_w1's operands cast to fp32 (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = calls["grouped_matmul_decode_w1"]
+    emit(gmm_phase("decode_w1_fp32", x.float(), w.float(), "simt",
+                   tol=GMM_FP32_TOL))
+    del x, w
     del model, calls
     gc.collect()        # the engine's step hooks form a reference cycle
     torch.cuda.empty_cache()

@@ -1,10 +1,17 @@
 """Wrapper of the grouped matmul kernel.
 
 ``grouped_matmul(x, w)`` computes ``x[G, M, K] @ w[G, K, N]`` with fp32
-accumulation, in x.dtype.  On a CUDA device it launches the kernel in
-``csrc/grouped_matmul.cu`` (built with nvcc at first use) on the current
-stream, or raises; it never falls back.  On the CPU it runs the plain
+accumulation, in x.dtype.  On a CUDA device it launches one of the two
+kernels in ``csrc/grouped_matmul.cu`` (built with nvcc at first use) on the
+current stream, or raises; it never falls back.  ``route`` picks the kernel
+before the launch, from dtype, shape and alignment alone: the tensor-core
+kernel (``"tc"``: TMA and wgmma) for bf16 whose rows TMA can address, the
+scalar kernel (``"simt"``) for the rest.  On the CPU it runs the plain
 version in ``ref.py``.
+
+Launch counts (``repro_torch.kernels.LAUNCHES``): ``grouped_matmul`` for
+every launch, and ``grouped_matmul.tc`` or ``grouped_matmul.simt`` for the
+route taken.
 """
 from __future__ import annotations
 
@@ -21,13 +28,30 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _gmm_fn():
-    fn = _build.load(SOURCE).grouped_matmul
+def _kernel_fn(route_name: str):
+    lib = _build.load(SOURCE)
+    fn = lib.grouped_matmul_tc if route_name == "tc" else lib.grouped_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, p]
+        # the scalar kernel also takes a dtype code
+        ints = [i] * (4 if route_name == "tc" else 5)
+        fn.argtypes = [p, p, p, *ints, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """``"tc"`` where TMA can address both operands: bf16, K and N
+    multiples of 8 (rows of 16-byte multiples), K > 0 and both bases
+    16-byte aligned; ``"simt"`` otherwise (fp32 included: the reference
+    sums in full fp32, so TF32 tensor cores are not used).  Reads only
+    dtype, shape and ``data_ptr``, so it decides on any device."""
+    K, N = x.shape[2], w.shape[2]
+    if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and K > 0 and K % 8 == 0 and N % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "tc"
+    return "simt"
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -57,13 +81,16 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((G, M, N), dtype=x.dtype, device=device)
     if out.numel() == 0:
         return out
-    fn = _gmm_fn()
+    which = route(x, w)
+    fn = _kernel_fn(which)
+    args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, K, N]
+    if which == "simt":
+        args.append(_DTYPES[x.dtype])
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, K, N,
-                 _DTYPES[x.dtype], stream)
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{NAME}: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{NAME}: {which} kernel launch failed with CUDA "
+                           f"error {err}")
     count_launch(NAME)
+    count_launch(f"{NAME}.{which}")
     return out

@@ -2,15 +2,17 @@
 plain version that CPU tensors run, and the CUDA kernel on the card) held
 against the reference's Pallas kernel in interpret mode over the
 ``test_grouped_matmul_sweep`` shapes, the ragged one included.
-Tolerances are the reference's: 1e-4 in fp32, 3e-2 in bf16.  The
-kernel's tests on the card are in ``test_torch_kernels_gpu.py``."""
+Tolerances are the reference's: 1e-4 in fp32, 3e-2 in bf16.  ``route``,
+which picks the tensor-core or the scalar kernel before a launch, is held
+to its rules on CPU tensors (it reads only dtype, shape and alignment).
+The kernels' tests on the card are in ``test_torch_kernels_gpu.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.grouped_matmul.ops import grouped_matmul as pallas_gmm
-from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -47,3 +49,36 @@ def test_rejects_what_it_cannot_take():
         grouped_matmul(x[0], w[0])
     with pytest.raises(ValueError, match="no kernel for device"):
         grouped_matmul(x.to("meta"), w.to("meta"))
+
+
+def _operands(G, M, K, N, dtype, x_shift=0, w_shift=0):
+    """x and w on the CPU, each viewed ``shift`` elements into a larger
+    buffer (a shift of 1 bf16 element puts the base 2 bytes off)."""
+    def view(shape, shift):
+        n = shape[0] * shape[1] * shape[2]
+        return torch.zeros(n + 8, dtype=dtype)[shift:shift + n].view(shape)
+    return view((G, M, K), x_shift), view((G, K, N), w_shift)
+
+
+@pytest.mark.parametrize("G,M,K,N,dtype,x_shift,w_shift,want", [
+    (64, 311, 2048, 1024, torch.bfloat16, 0, 0, "tc"),     # prefill w1
+    (64, 311, 1024, 2048, torch.bfloat16, 0, 0, "tc"),     # prefill w2
+    (64, 8, 2048, 1024, torch.bfloat16, 0, 0, "tc"),       # decode w1
+    (5, 129, 256, 192, torch.bfloat16, 0, 0, "tc"),        # ragged M
+    (4, 1, 8, 8, torch.bfloat16, 0, 0, "tc"),              # smallest rows
+    (64, 8, 2048, 1024, torch.float32, 0, 0, "simt"),      # fp32: no TF32
+    (3, 37, 65, 50, torch.bfloat16, 0, 0, "simt"),         # K, N not % 8
+    (2, 16, 64, 60, torch.bfloat16, 0, 0, "simt"),         # N not % 8
+    (2, 16, 60, 64, torch.bfloat16, 0, 0, "simt"),         # K not % 8
+    (2, 4, 0, 64, torch.bfloat16, 0, 0, "simt"),           # K = 0
+    (2, 16, 64, 64, torch.bfloat16, 1, 0, "simt"),         # x base + 2 B
+    (2, 16, 64, 64, torch.bfloat16, 0, 1, "simt"),         # w base + 2 B
+    (2, 16, 64, 64, torch.bfloat16, 8, 8, "tc"),           # + 16 B
+    (2, 16, 64, 64, torch.float16, 0, 0, "simt"),          # not bf16
+])
+def test_route_decides_from_dtype_shape_and_alignment(G, M, K, N, dtype,
+                                                      x_shift, w_shift,
+                                                      want):
+    x, w = _operands(G, M, K, N, dtype, x_shift, w_shift)
+    assert x.is_contiguous() and w.is_contiguous()
+    assert route(x, w) == want

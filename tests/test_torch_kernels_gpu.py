@@ -18,7 +18,7 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
 CONFIGS = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "qwen2_5_32b",
@@ -89,22 +89,69 @@ def test_attention_kernel_raises_instead_of_falling_back(card):
 
 # ------------------------------------------------------ K3 grouped matmul
 
+def _gmm_operands(card, G, M, K, N, dtype):
+    g = torch.Generator(device=card).manual_seed(M * N)
+    x = torch.randn(G, M, K, generator=g, device=card).to(dtype)
+    w = (torch.randn(G, K, N, generator=g, device=card) / K ** 0.5).to(dtype)
+    return x, w
+
+
+def _check_gmm(x, w, want_route):
+    """One launch on ``want_route``, counted there and in the total, and
+    the reference's tolerance against the plain version."""
+    assert route(x, w) == want_route
+    before = {k: kernels.LAUNCHES.get(k, 0) for k in (
+        "grouped_matmul", "grouped_matmul.tc", "grouped_matmul.simt")}
+    got = grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    other = "simt" if want_route == "tc" else "tc"
+    assert kernels.LAUNCHES["grouped_matmul"] == before["grouped_matmul"] + 1
+    assert (kernels.LAUNCHES[f"grouped_matmul.{want_route}"]
+            == before[f"grouped_matmul.{want_route}"] + 1)
+    assert (kernels.LAUNCHES.get(f"grouped_matmul.{other}", 0)
+            == before[f"grouped_matmul.{other}"])
+    tol = 3e-2 if x.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,M,K,N", [(64, 8, 2048, 1024), (8, 320, 256, 96),
                                      (3, 37, 65, 50), (2, 1, 1, 1)])
 def test_grouped_matmul_kernel_matches_plain_version(card, G, M, K, N,
                                                       dtype):
-    g = torch.Generator(device=card).manual_seed(M * N)
-    x = torch.randn(G, M, K, generator=g, device=card).to(dtype)
-    w = (torch.randn(G, K, N, generator=g, device=card) / K ** 0.5).to(dtype)
-    before = kernels.LAUNCHES.get("grouped_matmul", 0)
-    got = grouped_matmul(x, w)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["grouped_matmul"] == before + 1
-    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
-                               rtol=tol, atol=tol)
+    # fp32 and the shapes TMA cannot take run the scalar kernel
+    x, w = _gmm_operands(card, G, M, K, N, dtype)
+    tc = dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+    _check_gmm(x, w, "tc" if tc else "simt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,M,K,N", [
+    (64, 311, 2048, 1024),     # serving: prefill w1 / w3
+    (64, 311, 1024, 2048),     # serving: prefill w2
+    (64, 8, 2048, 1024),       # serving: decode w1 / w3
+    (64, 8, 1024, 2048),       # serving: decode w2
+    (5, 129, 256, 192),        # ragged M; N = 128 + 64
+    (4, 1, 512, 256),          # one row
+    (3, 100, 136, 200),        # N = 128 + 72, K = 2 * 64 + 8
+    (2, 40, 64, 72),           # decode tiles: N = 64 + 8
+])
+def test_grouped_matmul_tc_route_matches_plain_version(card, G, M, K, N):
+    x, w = _gmm_operands(card, G, M, K, N, torch.bfloat16)
+    _check_gmm(x, w, "tc")
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_misaligned_base_takes_simt(card):
+    G, M, K, N = 4, 24, 128, 64
+    x, w = _gmm_operands(card, G, M, K, N, torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+    shifted = buf[1:].view(G, M, K)          # base 2 bytes past 16-aligned
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    _check_gmm(shifted, w, "simt")
 
 
 @pytest.mark.gpu
