@@ -30,18 +30,24 @@ Phases, each printing one JSON line:
              (random weights from a seeded generator on the card),
              ``ServeEngine`` with 8 slots of 4096 positions answering 16
              requests (prompts of 128-2048 tokens, 64 new tokens each);
-             every attention goes through the FlashAttention kernel and
-             every expert product through the grouped-matmul kernel's
-             tensor-core route (``tc``);
+             every prefill attention goes through the FlashAttention
+             kernel's tensor-core route (``tc``), every decode attention
+             through its split route (``split``), and every expert product
+             through the grouped-matmul kernel's tensor-core route;
 8. kernel  — each of those two kernels on calls captured in phase 7 (the
              longest prompt's prefill and one decode tick for attention;
              that prefill's and that tick's w1 and w2 products for the
              grouped matmul), against its plain version within the
              reference's tolerance, with the same timings and bounds as
              phase 3 (``library_ms``: one ``scaled_dot_product_attention``
-             with an explicit mask, one ``torch.bmm``), the grouped
-             matmul's route and its share of the bound; then the scalar
-             route (``simt``) on the decode w1 product cast to fp32;
+             with an explicit mask, one ``torch.bmm``; for the causal
+             prefill also ``library_causal_ms``, SDPA with
+             ``is_causal=True`` over the filled cache rows), the route
+             each must take (attention: ``tc`` for the prefill, ``split``
+             for the tick; the grouped matmul: ``tc``) and its share of
+             the bound, attention also with a cold L2; then the scalar
+             routes on fp32 casts: attention's ``rows`` on the prefill,
+             the grouped matmul's ``simt`` on the decode w1 product;
 9. check   — OLMoE at full width but 2 layers, in float32 with TF32 off:
              a 256-token prefill and 4 teacher-forced decode steps give the
              same logits on ``device="cuda"`` and ``device="cpu"``;
@@ -95,9 +101,12 @@ N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, (128, 2048), 64
 CAPTURE_TICK = 32   # the decode tick whose kernel calls are captured
 # the reference's bf16 tolerances (tests/test_kernels.py)
 ATTENTION_TOL, GMM_TOL = 2e-2, 3e-2
-# the scalar route in fp32 (the reference's fp32 tolerance)
-GMM_FP32_TOL = 1e-4
+# the scalar routes in fp32 (the reference's fp32 tolerances)
+GMM_FP32_TOL, ATTENTION_FP32_TOL = 1e-4, 2e-3
 GMM_BATCH = 10      # grouped-matmul calls per timed run
+ATTN_BATCH = 10     # attention calls per timed run, queued behind a sleep
+QUEUE_CYCLES = 4_000_000  # ~2 ms at the H100's clocks: covers the batch
+FLUSH_BYTES = 100 << 20   # written before a cold-L2 run
 PROFILE_ATTEMPTS = 3  # traces of a step before an empty one fails
 # the float32 model check: layers, prompt, decode steps, tolerances
 CHECK_LAYERS, CHECK_PROMPT, CHECK_STEPS = 2, 256, 4
@@ -229,18 +238,31 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2, batch: int = 1) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, batch: int = 1,
+            queued: bool = False, cold: bool = False) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, each bracketed by
     CUDA events on the current stream.  With ``batch`` > 1 a run is that
     many calls back to back, divided by their count: the device's time per
-    call once the host's launch overhead hides behind the queued work."""
+    call once the host's launch overhead hides behind the queued work.
+    With ``queued`` the device first sleeps ``QUEUE_CYCLES`` clock cycles,
+    so the host has queued the whole batch before the first event fires
+    even where one call's host time exceeds its device time.  With ``cold``
+    the device also writes ``FLUSH_BYTES`` (twice the 50 MB L2) before
+    each run, so the run reads its inputs from device memory, as a
+    serving step that has touched every layer since finds them."""
     import torch
+    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if cold else None)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued or cold:
+            torch.cuda._sleep(QUEUE_CYCLES)
+        if cold:
+            flush.zero_()
         a.record()
         for _ in range(batch):
             fn()
@@ -685,6 +707,13 @@ def serve_path() -> tuple[dict, object, dict]:
         require(launches.get(name, 0) == per_step * steps,
                 f"serve: {launches.get(name, 0)} {name} launches, expected "
                 f"{per_step} x {steps} steps")
+    # every prefill attention takes the tensor-core route, every decode
+    # attention the split route
+    for route_name, n in (("tc", n_pre), ("split", n_tick)):
+        got = launches.get(f"flash_attention.{route_name}", 0)
+        require(got == cfg.n_layers * n,
+                f"serve: {got} flash_attention.{route_name} launches, "
+                f"expected {cfg.n_layers} x {n} steps")
     # every expert product of the serving path takes the tensor-core route
     tc = launches.get("grouped_matmul.tc", 0)
     require(tc == 3 * cfg.n_layers * steps,
@@ -781,18 +810,27 @@ def _verdict(label: str, got, want, tol: float) -> dict:
 
 
 def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
+                    want_route: str, tol: float = ATTENTION_TOL,
                     reps: int = REPS) -> dict:
     """The FlashAttention kernel against its plain version on one captured
-    call, with the SDPA yardstick and the bound."""
+    call: the route it must take (its launch counted there), the SDPA
+    yardsticks, the bound and the share of it reached."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import flash_attention, route
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     args = (q, k, v, q_start, kv_len)
+    which = route(q, k, v)
+    require(which == want_route,
+            f"{label}: route {which}, expected {want_route}")
+    counted = kernels.LAUNCHES.get(f"flash_attention.{which}", 0)
     got = flash_attention(*args, **kw)
     want = flash_attention_ref(*args, **kw)
     torch.cuda.synchronize()
-    rec = _verdict(label, got, want, ATTENTION_TOL)
+    require(kernels.LAUNCHES.get(f"flash_attention.{which}", 0)
+            == counted + 1, f"{label}: no flash_attention.{which} launch")
+    rec = _verdict(label, got, want, tol)
     B, Sq, Kh, G, hd = q.shape
     Skv = k.shape[1]
     # admissible (query, key) positions, as the kernel's mask defines them
@@ -806,8 +844,16 @@ def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     esize = q.element_size()
     nbytes = esize * (2 * q.numel() + 2 * int(kv_len.sum()) * Kh * hd)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = 4 * hd * pairs / BF16_OPS_PER_S * 1e3
-    kernel_ms = cuda_ms(lambda: flash_attention(*args, **kw), reps)
+    # bf16 products on the tensor cores; fp32 ones outside them
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    bound_ops_ms = 4 * hd * pairs / rate * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    # kernel and yardsticks timed ATTN_BATCH calls at a time, queued behind
+    # a device sleep: a decode call (~0.03 ms) is shorter than the
+    # wrapper's host time, which one call per event pair would add to it
+    # (kept as kernel_ms_single)
+    kernel_ms = cuda_ms(lambda: flash_attention(*args, **kw), reps,
+                        batch=ATTN_BATCH, queued=True)
     plain_ms = cuda_ms(lambda: flash_attention_ref(*args, **kw),
                        max(3, reps // 4), warmup=1)
     # yardstick: one SDPA call on the same cache with an explicit mask
@@ -815,17 +861,38 @@ def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     amask = mask[:, None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=amask, enable_gqa=G > 1), reps)
+        qs, ks, vs, attn_mask=amask, enable_gqa=G > 1), reps,
+        batch=ATTN_BATCH, queued=True)
+    # and, for a plain causal call, SDPA's causal flash path over the
+    # kv_len filled rows only: the same work as the kernel's
+    library_causal_ms = None
+    n = int(kv_len[0])
+    if (B == 1 and int(q_start[0]) == 0 and n == Sq
+            and kw.get("window") is None and kw.get("softcap") is None):
+        kc, vc = ks[:, :, :n], vs[:, :, :n]
+        library_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, is_causal=True, enable_gqa=G > 1), reps,
+            batch=ATTN_BATCH, queued=True)
     rec.update({"phase": "kernel", "name": "flash_attention", "input": label,
+                "route": which,
                 "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Kh": Kh, "G": G,
                           "hd": hd},
                 "dtype": str(q.dtype), "kv_len": kv_len.tolist(),
                 "admissible_pairs": pairs, "bytes": nbytes,
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "kernel_ms": kernel_ms,
+                "kernel_ms_single": cuda_ms(
+                    lambda: flash_attention(*args, **kw), reps),
+                "kernel_ms_cold": cuda_ms(
+                    lambda: flash_attention(*args, **kw), reps, cold=True),
+                "plain_ms": plain_ms,
                 "library_ms": library_ms,
-                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "library_causal_ms": library_causal_ms,
+                "bound_ms": bound_ms,
                 "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                             else "operations")})
+                             else "operations"),
+                "pct_of_bound": 100 * bound_ms / kernel_ms,
+                "kernel_over_library": kernel_ms / library_ms})
+    rec["pct_of_bound_cold"] = 100 * bound_ms / rec["kernel_ms_cold"]
     return rec
 
 
@@ -1166,7 +1233,8 @@ def run() -> int:
           "kernels": {src.stem: {
               "seconds": b["seconds"], "cached": b["cached"],
               "ptxas": [ln for ln in b["log"].splitlines()
-                        if "registers" in ln or "spill" in ln]}
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln]}
               for src, b in built.items()}})
 
     dev = torch.device("cuda")
@@ -1185,13 +1253,21 @@ def run() -> int:
 
     serve_rec, model, calls = serve_path()
     emit(serve_rec)
-    fa_phases = [attention_phase(label, *calls[f"flash_attention_{label}"])
-                 for label in ("prefill", "decode")]
+    fa_phases = [attention_phase(label, *calls[f"flash_attention_{label}"],
+                                 want_route)
+                 for label, want_route in (("prefill", "tc"),
+                                           ("decode", "split"))]
     gmm_phases = [gmm_phase(label, *calls[f"grouped_matmul_{label}"], "tc")
                   for label in ("prefill_w1", "prefill_w2", "decode_w1",
                                 "decode_w2")]
     for rec in fa_phases + gmm_phases:
         emit(rec)
+    # the scalar attention route, on the captured prefill cast to fp32
+    q, k, v, q_start, kv_len, kw = calls["flash_attention_prefill"]
+    emit(attention_phase("prefill_fp32", q.float(), k.float(), v.float(),
+                         q_start, kv_len, kw, "rows",
+                         tol=ATTENTION_FP32_TOL))
+    del q, k, v
     # the scalar route, on decode_w1's operands cast to fp32 (TF32 off)
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w = calls["grouped_matmul_decode_w1"]

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` exposes plain C functions (no PyTorch headers), so one
 ``nvcc`` call per source takes seconds.  Libraries land in ``_build/``
-beside this file, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Building happens at
+beside this file, named by a hash of the source, the headers it includes
+(``#include "..."``, followed recursively) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  Building happens at
 first use (or up front through ``build``/``build_all``), never at import.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,10 +41,31 @@ def nvcc() -> str:
                        "toolkit (nvcc on PATH or under $CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list[Path]:
+    """The files ``source`` includes with quotes, and those they include,
+    resolved against the including file's directory as nvcc does; sorted.
+    An include that names no file there is left to the compiler."""
+    seen: set[Path] = set()
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.is_file() and dep not in seen:
+                seen.add(dep)
+                todo.append(dep)
+    return sorted(seen)
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> dict:

@@ -1,11 +1,19 @@
-"""Wrapper of the FlashAttention forward kernel.
+"""Wrapper of the FlashAttention forward kernels.
 
 ``flash_attention(q, k, v, q_start, kv_len, window=None, softcap=None)``
 takes the model's layout (``ref.flash_attention_ref`` defines the
-function).  On a CUDA device it launches the kernel in
+function).  On a CUDA device it launches one of the three routes in
 ``csrc/flash_attention.cu`` (built with nvcc at first use) on the current
-stream, or raises; it never falls back.  On the CPU it runs the plain
-version in ``ref.py``.
+stream, or raises; it never falls back.  ``route`` picks it before the
+launch, from dtype, shape and alignment alone: ``"split"`` (flash-decoding
+over 256-key chunks of the cache, then a log-sum-exp merge) for at most 8
+query rows per kv head, ``"tc"`` (TMA and wgmma tiles) for bf16 prefill,
+``"rows"`` (scalar fp32 FMA tiles) for the rest.  On the CPU it runs the
+plain version in ``ref.py``.
+
+Launch counts (``repro_torch.kernels.LAUNCHES``): ``flash_attention`` for
+every call, and ``flash_attention.tc``, ``.split`` or ``.rows`` for the
+route taken (one count per call, though ``split`` runs two kernels).
 """
 from __future__ import annotations
 
@@ -23,16 +31,44 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_WINDOW = 1 << 30
+SPLIT_ROWS = 8      # query rows per kv head the split route takes
+SPLIT_KEYS = 256    # keys per split chunk (kSplitKeys in the source)
+TC_ROWS = 128       # query rows per tc block; G must divide it
+TC_HEAD_DIMS = (64, 128)
 
 
-def _fwd_fn():
-    fn = _build.load(SOURCE).flash_attention_fwd
+def _kernel_fn(which: str):
+    fn = getattr(_build.load(SOURCE), f"flash_attention_{which}")
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, q_start, kv_len, out, then B, Sq, Skv, Kh, G, hd,
+        # window, softcap; split also takes three scratch pointers after
+        # out, and a dtype and n_split; rows a dtype
+        if which == "split":
+            fn.argtypes = [p] * 9 + [i] * 7 + [f, i, i, p]
+        elif which == "rows":
+            fn.argtypes = [p] * 6 + [i] * 7 + [f, i, p]
+        else:
+            fn.argtypes = [p] * 6 + [i] * 7 + [f, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"split"`` for at most ``SPLIT_ROWS`` query rows per kv head
+    (``Sq * G``: every decode tick) with head_dim a multiple of 32;
+    ``"tc"`` for bf16 with head_dim 64 or 128, G dividing ``TC_ROWS`` and
+    16-byte aligned bases (TMA's addressing); ``"rows"`` otherwise (fp32
+    prefill, head_dim 16 or 32).  Reads only dtype, shape and
+    ``data_ptr``, so it decides on any device."""
+    _, Sq, _, G, hd = q.shape
+    if Sq * G <= SPLIT_ROWS and hd % 32 == 0:
+        return "split"
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and hd in TC_HEAD_DIMS and TC_ROWS % G == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "tc"
+    return "rows"
 
 
 def _check(q, k, v):
@@ -84,16 +120,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _fwd_fn()
+    which = route(q, k, v)
+    Skv = k.shape[1]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
+            lens.data_ptr(), out.data_ptr()]
+    tail = [_NO_WINDOW if window is None else int(window),
+            0.0 if softcap is None else float(softcap)]
+    if which == "split":
+        # fp32 partial (m, l, acc) per (batch, kv head, chunk, row); the
+        # chunk count follows Skv alone, so kv_len is never read here
+        n_split = max(1, -(-Skv // SPLIT_KEYS))
+        rows = B * Kh * n_split * Sq * G
+        scratch = torch.empty(rows * (2 + hd), dtype=torch.float32,
+                              device=device)
+        args += [scratch.data_ptr(), scratch[rows:].data_ptr(),
+                 scratch[2 * rows:].data_ptr()]
+        tail += [_DTYPES[q.dtype], n_split]
+    elif which == "rows":
+        tail.append(_DTYPES[q.dtype])
+    fn = _kernel_fn(which)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), B, Sq, k.shape[1], Kh, G,
-                 hd, _NO_WINDOW if window is None else int(window),
-                 0.0 if softcap is None else float(softcap), _DTYPES[q.dtype],
-                 stream)
+        err = fn(*args, B, Sq, Skv, Kh, G, hd, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"{NAME}: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{NAME}: {which} kernel launch failed with CUDA "
+                           f"error {err}")
     count_launch(NAME)
+    count_launch(f"{NAME}.{which}")
     return out

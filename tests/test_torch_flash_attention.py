@@ -12,7 +12,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as pallas_fa
 from repro.models.transformer import TransformerConfig, _block_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, route
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -128,3 +128,58 @@ def test_rejects_what_it_cannot_take():
         flash_attention(q, kv, kv, 0, 4, window=0)
     with pytest.raises(ValueError, match="no kernel for device"):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"), 0, 4)
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose base is 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=dtype)
+    off = next(i for i in range(1, 9) if (buf[i:].data_ptr() % 16) == 2)
+    t = buf[off:off + n].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 2
+    return t
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16_hd128_prefill", "tc"),
+    ("bf16_hd64_g2_prefill", "tc"),
+    ("bf16_hd128_g8_chunk", "tc"),
+    ("bf16_hd16_prefill", "rows"),
+    ("bf16_hd32_prefill", "rows"),
+    ("bf16_g3_prefill", "rows"),
+    ("fp32_hd128_prefill", "rows"),
+    ("fp32_decode", "split"),
+    ("bf16_decode", "split"),
+    ("bf16_g8_decode", "split"),
+    ("fp32_sq2_g4", "split"),
+    ("bf16_hd16_decode", "rows"),
+    ("bf16_misaligned_prefill", "rows"),
+])
+def test_route(case, want):
+    """``route`` decides from dtype, shape and alignment alone, so CPU
+    tensors show the choice a CUDA call of the same shapes makes."""
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    B, Sq, Kh, G, hd, Skv = 1, 300, 2, 1, 128, 512
+    if "hd64" in case:
+        hd = 64
+    if "hd16" in case:
+        hd = 16
+    if "hd32" in case:
+        hd = 32
+    if "_g2" in case:
+        G = 2
+    if "_g3" in case:
+        G = 3
+    if "_g8" in case:
+        G = 8
+    if "chunk" in case:
+        Sq = 16
+    if "decode" in case:
+        B, Sq = 8, 1
+    if "sq2_g4" in case:
+        Sq, G = 2, 4
+    make = _misaligned if "misaligned" in case else (
+        lambda shape, dt: torch.zeros(shape, dtype=dt))
+    q = make((B, Sq, Kh, G, hd), dtype)
+    k = torch.zeros(B, Skv, Kh, hd, dtype=dtype)
+    assert route(q, k, k) == want

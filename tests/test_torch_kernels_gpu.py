@@ -17,6 +17,7 @@ from repro_torch import kernels
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import route as fa_route
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
@@ -85,6 +86,108 @@ def test_attention_kernel_raises_instead_of_falling_back(card):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q.half(), kv.contiguous().half(),
                         kv.contiguous().half(), 0, 4)
+
+
+FA_ROUTES = ("tc", "split", "rows")
+
+
+def _attention_launch(q, k, v, q_start, kv_len, want_route, **kw):
+    """One wrapper call on ``want_route``: counted once in the total and
+    once under that route, and under no other."""
+    assert fa_route(q, k, v) == want_route
+    before = {r: kernels.LAUNCHES.get(f"flash_attention.{r}", 0)
+              for r in FA_ROUTES}
+    total = kernels.LAUNCHES.get("flash_attention", 0)
+    got = flash_attention(q, k, v, q_start, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == total + 1
+    for r in FA_ROUTES:
+        assert kernels.LAUNCHES.get(f"flash_attention.{r}", 0) == (
+            before[r] + (r == want_route))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "tc_ragged", "tc_chunk", "tc_window_softcap", "tc_g2_hd64", "tc_g4",
+    "split_kv_len_1", "split_kv_len_skv", "split_empty_chunks",
+    "split_fp32", "split_window_softcap"])
+def test_attention_route_matches_plain_version(card, case):
+    """Each route of the redesigned kernel against the plain version:
+    ``tc`` on a ragged Sq (not a multiple of 128), a chunk at q_start > 0,
+    a window with a softcap, G = 2 at head_dim 64, G = 4 (32 query
+    positions a row tile); ``split`` with kv_len 1,
+    kv_len = Skv, a kv_len that leaves chunks empty, fp32, a window."""
+    g = torch.Generator(device=card).manual_seed(len(case))
+    B, Skv, K, G, hd = 2, 700, 4, 1, 128
+    dtype, window, cap = torch.bfloat16, None, None
+    if case == "tc_ragged":
+        Sq, q_start = 300, torch.tensor([0, 0])
+    elif case == "tc_chunk":
+        Sq, q_start = 200, torch.tensor([100, 437])
+    elif case == "tc_window_softcap":
+        Sq, q_start, window, cap = 333, torch.tensor([0, 250]), 100, 30.0
+    elif case == "tc_g2_hd64":
+        Sq, q_start, G, hd = 150, torch.tensor([0, 77]), 2, 64
+    elif case == "tc_g4":
+        Sq, q_start, G = 100, torch.tensor([0, 350]), 4
+    else:
+        Sq, B = 1, 3
+        q_start = {"split_kv_len_1": torch.tensor([0, 0, 0]),
+                   "split_kv_len_skv": torch.tensor([Skv - 1] * 3),
+                   }.get(case, torch.tensor([0, 299, Skv - 1]))
+        if case == "split_fp32":
+            dtype = torch.float32
+        if case == "split_window_softcap":
+            G, window, cap = 8, 90, 30.0
+    kv_len = q_start + Sq
+    want_route = case.split("_")[0]
+    q = torch.randn(B, Sq, K, G, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    q_start, kv_len = q_start.to(card), kv_len.to(card)
+    got = _attention_launch(q, k, v, q_start, kv_len, want_route,
+                            window=window, softcap=cap)
+    want = flash_attention_ref(q, k, v, q_start, kv_len, window=window,
+                               softcap=cap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["tc", "split"])
+def test_attention_never_reads_nan_past_kv_len(card, which):
+    """OLMoE's shapes (16 kv heads, G = 1, head_dim 128, a 4096-row cache
+    longer than kv_len) with every cache row at or past kv_len holding
+    NaN: the output is finite and equal to the kernel's output on the same
+    cache with those rows zeroed.  (The plain version is no oracle here:
+    its einsum over all Skv rows turns 0 * NaN into NaN.)  The card's twin
+    of ``test_keys_past_kv_len_are_never_read``."""
+    g = torch.Generator(device=card).manual_seed(7)
+    Skv, K, hd = 4096, 16, 128
+    if which == "tc":
+        B, Sq = 1, 1000
+        q_start = torch.tensor([0], device=card)
+    else:
+        B, Sq = 8, 1
+        q_start = torch.tensor([5, 127, 128, 999, 1500, 2047, 3000, 4094],
+                               device=card)
+    kv_len = q_start + Sq
+    q = torch.randn(B, Sq, K, 1, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(B, Skv, K, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(B, Skv, K, hd, generator=g, device=card).bfloat16()
+    past = (torch.arange(Skv, device=card)[None, :]
+            >= kv_len[:, None])[:, :, None, None]
+    nan_k, nan_v = k.masked_fill(past, float("nan")), v.masked_fill(
+        past, float("nan"))
+    zero_k, zero_v = k.masked_fill(past, 0.0), v.masked_fill(past, 0.0)
+    got = _attention_launch(q, nan_k, nan_v, q_start, kv_len, which)
+    want = _attention_launch(q, zero_k, zero_v, q_start, kv_len, which)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    ref = flash_attention_ref(q, zero_k, zero_v, q_start, kv_len)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 # ------------------------------------------------------ K3 grouped matmul
