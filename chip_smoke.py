@@ -57,14 +57,20 @@ Phases, each printing one JSON line:
              ``serve_p99`` (batch 512) 50 times, ``serve_bulk`` (batch
              262,144) 3 times, ``retrieval_cand`` (1 query, 1M candidates)
              20 times; every forward's bag lookups go through one
-             embedding-bag kernel launch.  The batches are the reference's
-             seeded synthetic click log, built on the host and copied to
-             the card outside the timed window (``recsys_copy``); then one
-             more forward of each shape under ``torch.profiler``;
+             embedding-bag kernel launch on its ``vec`` route, which writes
+             the bag sums straight into the MLP's input buffer.  The
+             batches are the reference's seeded synthetic click log, built
+             on the host and copied to the card outside the timed window
+             (``recsys_copy``); then one more forward of each shape under
+             ``torch.profiler`` (no ``torch.cat`` kernel may appear);
 11. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
-             ``serve_bulk`` lookups against its plain version (1e-4, the
-             reference's tolerance), with one
-             ``torch.nn.functional.embedding_bag`` call as the yardstick;
+             ``serve_bulk`` lookups, and on ``serve_bulk`` written through
+             ``out`` into a buffer of the deep tower's padded shape (the
+             padding columns untouched), against its plain version (1e-4,
+             the reference's tolerance), on the ``vec`` route, timed over
+             batches of 10 calls queued behind a device sleep and as one
+             call, with one ``torch.nn.functional.embedding_bag`` call as
+             the yardstick;
 12. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``.
 
@@ -105,6 +111,7 @@ ATTENTION_TOL, GMM_TOL = 2e-2, 3e-2
 GMM_FP32_TOL, ATTENTION_FP32_TOL = 1e-4, 2e-3
 GMM_BATCH = 10      # grouped-matmul calls per timed run
 ATTN_BATCH = 10     # attention calls per timed run, queued behind a sleep
+BAG_BATCH = 10      # embedding-bag calls per timed run, queued behind a sleep
 QUEUE_CYCLES = 4_000_000  # ~2 ms at the H100's clocks: covers the batch
 FLUSH_BYTES = 100 << 20   # written before a cold-L2 run
 PROFILE_ATTEMPTS = 3  # traces of a step before an empty one fails
@@ -767,7 +774,7 @@ def profile_step(step, *args) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0,
                  "embedding_bag": 0.0, "matmul": 0.0, "other": 0.0}
-        kernels, other = 0, []
+        kernels, other, copies = 0, [], []
         for ev in prof.key_averages():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -783,6 +790,8 @@ def profile_step(step, *args) -> dict:
             kinds[kind] += ms
             if kind == "other":
                 other.append((ms, ev.count, ev.key[:60]))
+                if "copy" in name or "catarray" in name:
+                    copies.append((ms, ev.count, ev.key[:80]))
         device_ms = sum(kinds.values())
         if device_ms > 0:
             break
@@ -792,6 +801,7 @@ def profile_step(step, *args) -> dict:
             "idle_share": max(0.0, 1 - device_ms / wall_ms),
             "device_kernels": kernels, "device_ms_by_kind": kinds,
             "top_other": sorted(other, reverse=True)[:5],
+            "copy_kernels": sorted(copies, reverse=True),
             "attempts": attempt}
 
 
@@ -1036,11 +1046,14 @@ def recsys_path() -> tuple[dict, dict, dict]:
     captured, current = {}, {"shape": None}
     real_bag = recsys.bag_sum
 
-    def bag(ids, table):
+    def bag(ids, table, out=None):
         key = current["shape"]
         if key in ("serve_p99", "serve_bulk") and key not in captured:
-            captured[key] = (ids.clone(), table)
-        return real_bag(ids, table)
+            # the ids, the table and the geometry of the deep tower's
+            # buffer that ``out`` views: rows, row stride, bag columns
+            captured[key] = (ids.clone(), table,
+                             (out.shape[0], out.stride(0), out.shape[1]))
+        return real_bag(ids, table, out=out)
 
     dims = {shape: wd.SHAPES[shape].dims for shape in RECSYS_RUNS}
     out_shape = {shape: (d.get("n_candidates", d["batch"]),)
@@ -1079,6 +1092,14 @@ def recsys_path() -> tuple[dict, dict, dict]:
     require(launches.get("embedding_bag", 0) == forwards,
             f"recsys: {launches.get('embedding_bag', 0)} embedding_bag "
             f"launches for {forwards} forwards")
+    require(launches.get("embedding_bag.vec", 0) == forwards,
+            f"recsys: {launches.get('embedding_bag.vec', 0)} of "
+            f"{forwards} embedding_bag launches on the vec route")
+    for shape, prof in profiled.items():
+        cats = [k for k in prof["copy_kernels"]
+                if "catarraybatchedcopy" in k[2].lower()]
+        require(not cats, f"recsys {shape}: the profiled forward still "
+                          f"runs a concat kernel {cats}")
     require(set(captured) == {"serve_p99", "serve_bulk"},
             f"recsys: captured {sorted(captured)}")
     p99 = np.asarray(ms["serve_p99"])
@@ -1109,20 +1130,49 @@ def recsys_path() -> tuple[dict, dict, dict]:
     return rec, copy_rec, captured
 
 
-def bag_phase(label: str, ids, table, reps: int = REPS) -> dict:
+def bag_phase(label: str, ids, table, out_geom=None,
+              reps: int = REPS) -> dict:
     """The embedding-bag kernel against its plain version on one captured
-    lookup, with the ``F.embedding_bag`` yardstick and the bound."""
+    lookup, on the route it must take (``vec``), with the
+    ``F.embedding_bag`` yardstick and the bound.  With ``out_geom`` (rows,
+    row stride, bag columns of the deep tower's buffer) both write through
+    ``out`` into such a buffer, whose other columns must keep their bits."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch import kernels
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag, route
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-    got = embedding_bag(ids, table)
-    want = embedding_bag_ref(ids, table)
-    torch.cuda.synchronize()
-    rec = _verdict(label, got, want, BAG_TOL)
-    del want
     B, L = ids.shape
     V, D = table.shape
+    if out_geom is None:
+        out, want_out = None, None
+    else:
+        rows, stride, cols = out_geom
+        # NaN where the bags go, a pattern past them: every bag column must
+        # be written, and no other column touched
+        bufs = [torch.full((rows, stride), float("nan"), dtype=table.dtype,
+                           device=table.device) for _ in range(2)]
+        for buf in bufs:
+            buf[:, cols:] = torch.arange(stride - cols, dtype=table.dtype,
+                                         device=table.device)
+        rest = bufs[0][:, cols:].clone()
+        out, want_out = bufs[0][:, :cols], bufs[1][:, :cols]
+    which = route(ids, table, out)
+    require(which == "vec", f"{label}: route {which}, expected vec")
+    counted = kernels.LAUNCHES.get(f"embedding_bag.{which}", 0)
+    got = embedding_bag(ids, table, out=out)
+    want = embedding_bag_ref(ids, table, out=want_out)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES.get(f"embedding_bag.{which}", 0)
+            == counted + 1, f"{label}: no embedding_bag.{which} launch")
+    rec = _verdict(label, got, want, BAG_TOL)
+    if out is not None:
+        require(got.data_ptr() == out.data_ptr(),
+                f"{label}: the result is not the given out")
+        require(torch.equal(bufs[0][:, cols:], rest),
+                f"{label}: the kernel wrote past the bag columns")
+        rec["padding_untouched"] = True
+    del want
     esize = table.element_size()
     valid = (ids >= 0) & (ids < V)
     slots = int(valid.sum())
@@ -1133,27 +1183,50 @@ def bag_phase(label: str, ids, table, reps: int = REPS) -> dict:
     bytes_slots = 4 * ids.numel() + (slots + B) * D * esize
     bound_bytes_ms = bytes_distinct / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = slots * D / SCALAR_OPS_PER_S * 1e3
-    kernel_ms = cuda_ms(lambda: embedding_bag(ids, table), reps)
-    plain_ms = cuda_ms(lambda: embedding_bag_ref(ids, table),
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_every_slot_ms = bytes_slots / HBM_BYTES_PER_S * 1e3
+
+    def kernel():
+        return embedding_bag(ids, table, out=out)
+
+    # kernel and yardstick timed BAG_BATCH calls at a time, queued behind a
+    # device sleep: a serve_p99 lookup (~0.01 ms) is shorter than the
+    # wrapper's host time, which one call per event pair would add to it
+    # (kept as kernel_ms_single)
+    kernel_ms = cuda_ms(kernel, reps, batch=BAG_BATCH, queued=True)
+    plain_ms = cuda_ms(lambda: embedding_bag_ref(ids, table, out=want_out),
                        max(3, reps // 4), warmup=1)
-    # yardstick: one F.embedding_bag call, its clamped ids and per-slot
-    # weights made before the timing (not part of the port)
-    lib_ids = ids.clamp(min=0)
-    weights = (ids >= 0).to(table.dtype)
-    library_ms = cuda_ms(lambda: F.embedding_bag(
-        lib_ids, table, mode="sum", per_sample_weights=weights), reps)
+    # yardstick: one F.embedding_bag call into a fresh [B, D] (it has no
+    # strided output), its clamped ids and per-slot weights made before
+    # the timing (not part of the port)
+    library_ms = None
+    if out is None:
+        lib_ids = ids.clamp(min=0)
+        weights = (ids >= 0).to(table.dtype)
+        library_ms = cuda_ms(lambda: F.embedding_bag(
+            lib_ids, table, mode="sum", per_sample_weights=weights), reps,
+            batch=BAG_BATCH, queued=True)
     rec.update({"phase": "kernel", "name": "embedding_bag", "input": label,
+                "route": which,
                 "shape": {"B": B, "L": L, "V": V, "D": D},
+                "out": (None if out is None else
+                        {"shape": list(out.shape), "stride": out.stride()}),
                 "dtype": str(table.dtype), "valid_slots": slots,
                 "distinct_rows": distinct,
                 "rows_at_or_above_2_26": int((ids[valid] >= 1 << 26).sum()),
                 "bytes": bytes_distinct, "bytes_every_slot": bytes_slots,
-                "bound_every_slot_ms": bytes_slots / HBM_BYTES_PER_S * 1e3,
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                "bound_every_slot_ms": bound_every_slot_ms,
+                "kernel_ms": kernel_ms,
+                "kernel_ms_single": cuda_ms(kernel, reps),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms,
                 "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                             else "operations")})
+                             else "operations"),
+                "pct_of_bound": 100 * bound_ms / kernel_ms,
+                "pct_of_bound_every_slot": (100 * bound_every_slot_ms
+                                            / kernel_ms),
+                "kernel_over_library": (None if library_ms is None
+                                        else kernel_ms / library_ms)})
     return rec
 
 
@@ -1229,6 +1302,10 @@ def run() -> int:
     built = _build.build_all()
     require(len(built) == 4, f"expected 4 kernel sources, found "
                              f"{sorted(s.name for s in built)}")
+    spills = [ln for src, b in built.items() if src.stem == "embedding_bag"
+              for ln in b["log"].splitlines() if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    require(not spills, f"embedding_bag: ptxas spills {spills}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {src.stem: {
               "seconds": b["seconds"], "cached": b["cached"],
@@ -1282,8 +1359,11 @@ def run() -> int:
     recsys_rec, copy_rec, bags = recsys_path()
     emit(copy_rec)
     emit(recsys_rec)
-    bag_phases = [bag_phase(f"embedding_bag_{label}", *bags[label])
+    bag_phases = [bag_phase(f"embedding_bag_{label}", *bags[label][:2])
                   for label in ("serve_p99", "serve_bulk")]
+    # the third form: serve_bulk written into the deep tower's buffer
+    bag_phases.append(bag_phase("embedding_bag_serve_bulk_into_mlp_input",
+                                *bags["serve_bulk"]))
     for rec in bag_phases:
         emit(rec)
     del bags

@@ -4,7 +4,8 @@ retrieval (one query against many candidates) forward passes.
 
 The bag lookups of the deep tower go through the hand-written CUDA
 embedding-bag kernel (``kernels/embedding_bag``): one launch per forward
-for all ``B * n_sparse`` bags.  The MLP, the wide part and the retrieval
+for all ``B * n_sparse`` bags, writing the sums straight into the MLP's
+input buffer (no concat copy).  The MLP, the wide part and the retrieval
 scoring stay ``torch.matmul`` and plain gathers in fp32, as the reference
 left them to XLA outside any Pallas kernel (with TF32 off, the PyTorch
 default, so the card agrees with the CPU).
@@ -168,22 +169,48 @@ def params_from_reference(cfg: WideDeepConfig, arrays: dict,
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
-                  offsets: torch.Tensor) -> torch.Tensor:
+                  offsets: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """ids ``[B, F, bag]`` (-1 pad, per-field local ids) -> ``[B, F*dim]``:
     the field offsets are added where ``ids >= 0`` (the sums stay within
     int32: the largest row is ``total_rows - 1``), and all ``B * F`` bags
-    go through one embedding-bag kernel call."""
+    go through one embedding-bag kernel call.  ``out``: a ``[B, F*dim]``
+    view (last stride 1, any row stride) the bags are written into and
+    which is returned."""
     B, F_, L = ids.shape
     gidx = torch.where(ids >= 0, ids + offsets[None, :, None].to(ids.dtype),
                        -1).to(torch.int32)
-    bags = bag_sum(gidx.reshape(B * F_, L).contiguous(), table)
+    bags = bag_sum(gidx.reshape(B * F_, L).contiguous(), table, out=out)
     return bags.reshape(B, F_ * table.shape[1])
+
+
+def mlp_input_width(cfg: WideDeepConfig) -> int:
+    """Columns of the deep tower's input buffer: the ``F*dim`` bag sums and
+    the ``n_dense`` features, rounded up to whole 16-byte pieces so that
+    every row starts 16-byte aligned (K4's ``vec`` route writes into it);
+    1,293 fp32 columns become 1,296 at ``CONFIG``."""
+    per_piece = 16 // cfg.dtype.itemsize
+    n_in = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
+    return -(-n_in // per_piece) * per_piece
 
 
 def deep_tower(model: WideDeep, batch: dict,
                cfg: WideDeepConfig) -> torch.Tensor:
-    x = embedding_bag(model.table, batch["sparse_ids"], model.offsets)
-    x = torch.cat([x, batch["dense"].to(cfg.dtype)], dim=-1)
+    """The reference's concat ``[bags, dense]`` and MLP, with the concat
+    built in place: K4 writes the bag sums straight into columns ``[0,
+    F*dim)`` of one ``[B, mlp_input_width]`` buffer, ``dense`` is copied
+    beside them, and the first layer multiplies the ``[B, F*dim +
+    n_dense]`` view (its row stride is cuBLAS's leading dimension; the
+    padding columns are never read)."""
+    ids = batch["sparse_ids"]
+    B = ids.shape[0]
+    n_bags = cfg.n_sparse * cfg.embed_dim
+    n_in = n_bags + cfg.n_dense
+    buf = torch.empty((B, mlp_input_width(cfg)), dtype=cfg.dtype,
+                      device=model.table.device)
+    embedding_bag(model.table, ids, model.offsets, out=buf[:, :n_bags])
+    buf[:, n_bags:n_in] = batch["dense"].to(cfg.dtype)
+    x = buf[:, :n_in]
     for layer in model.mlp:
         x = torch.relu(x @ layer.w + layer.b)
     return x                                            # [B, mlp[-1]]

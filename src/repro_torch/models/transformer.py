@@ -297,13 +297,25 @@ def attention(x, ap: Attention, cfg: TransformerConfig, positions, is_local,
         if isinstance(t, torch.Tensor) and t.dim() == 1:
             if S != 1:
                 raise ValueError("per-slot cache positions need S == 1")
+            # a slot at t >= Smax writes nothing, as JAX's ``.at[].set``
+            # drops an out-of-range update: the index is clamped and the
+            # row keeps its old value there, with no read on the host
             rows = torch.arange(B, device=x.device)
-            ck[rows, t.long()] = k[:, 0].to(ck.dtype)
-            cv[rows, t.long()] = v[:, 0].to(cv.dtype)
+            Smax = ck.shape[1]
+            idx = t.long().clamp(max=Smax - 1)
+            keep = (t < Smax)[:, None, None]
+            ck[rows, idx] = torch.where(keep, k[:, 0].to(ck.dtype),
+                                        ck[rows, idx])
+            cv[rows, idx] = torch.where(keep, v[:, 0].to(cv.dtype),
+                                        cv[rows, idx])
         else:
             t = int(t)
-            ck[:, t:t + S] = k.to(ck.dtype)
-            cv[:, t:t + S] = v.to(cv.dtype)
+            # the write's start clamps to [0, Smax - S], as
+            # ``jax.lax.dynamic_update_slice`` does; q_start and kv_len
+            # stay t and t + S
+            t0 = max(0, min(t, ck.shape[1] - S))
+            ck[:, t0:t0 + S] = k.to(ck.dtype)
+            cv[:, t0:t0 + S] = v.to(cv.dtype)
         out = flash_attention(q, ck, cv, t, t + S, window=window,
                               softcap=cfg.attn_softcap)
     return out.reshape(B, S, Kh * G * hd) @ ap.wo.to(dt)

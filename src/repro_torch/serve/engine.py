@@ -35,9 +35,10 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: tfm.TransformerConfig, params: tfm.Transformer,
                  n_slots: int = 4, max_len: int = 512, eos_id: int = 0,
-                 device=None):
+                 greedy: bool = True, device=None):
         """``device=None`` means cuda (raises without a card); ``params``
-        must already live on the device."""
+        must already live on the device.  ``greedy`` is accepted and
+        ignored, as in the reference: decoding is always greedy."""
         self.device = resolve_device(device)
         held = {p.device for p in params.parameters()}
         if held != {self.device}:

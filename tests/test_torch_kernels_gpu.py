@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ops import route as bag_route
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ops import route as fa_route
@@ -360,6 +362,148 @@ def test_embedding_bag_kernel_raises_instead_of_falling_back(card):
         embedding_bag(ids, torch.ones(8, 5, device=card).t())
 
 
+def _bag_inputs(card, B, L, V, D, dtype, seed):
+    """Ids of every kind: padding (-1), below -1, valid, and >= V."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    ids = torch.randint(-3, V + 5, (B, L), generator=g, device=card,
+                        dtype=torch.int32)
+    table = torch.randn(V, D, generator=g, device=card).to(dtype)
+    return ids, table
+
+
+def _check_bag(ids, table, want_route, out=None):
+    """One launch on ``want_route`` (both counts move by one), equal to the
+    plain version: 1e-4 in fp32, 1e-2 in bf16 (one rounding of the
+    output)."""
+    assert bag_route(ids, table, out) == want_route
+    before = dict(kernels.LAUNCHES)
+    got = embedding_bag(ids, table, out=out)
+    torch.cuda.synchronize()
+    for key in ("embedding_bag", f"embedding_bag.{want_route}"):
+        assert kernels.LAUNCHES.get(key, 0) == before.get(key, 0) + 1, key
+    other = "warp" if want_route == "vec" else "vec"
+    assert kernels.LAUNCHES.get(f"embedding_bag.{other}", 0) == \
+        before.get(f"embedding_bag.{other}", 0)
+    tol = 1e-2 if table.dtype == torch.bfloat16 else 1e-4
+    want = embedding_bag_ref(ids, table)
+    torch.testing.assert_close(got.reshape(want.shape).float(),
+                               want.float(), rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 8, 13])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_vec_matches_plain_version(card, dtype, D, L):
+    """The 16-byte-piece route at 2-32 lanes a bag; L = 13 takes a full
+    and a partial chunk of 8 slots; B not a multiple of a block's bags."""
+    ids, table = _bag_inputs(card, 1001, L, 4099, D, dtype, D + L)
+    _check_bag(ids, table, "vec")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,dtype", [(256, torch.float32),
+                                     (512, torch.bfloat16)])
+def test_embedding_bag_vec_rows_wider_than_a_warp(card, D, dtype):
+    """64 pieces a row: each of a bag's 32 lanes sums two pieces, in two
+    passes over the bag's slots."""
+    ids, table = _bag_inputs(card, 333, 9, 2000, D, dtype, D)
+    _check_bag(ids, table, "vec")
+
+
+@pytest.mark.gpu
+def test_embedding_bag_vec_addresses_rows_past_2_to_the_26(card):
+    """fp32 [70M, 32] (9 GB): every valid id at or above 2^26, so every
+    row's element offset passes 2^31."""
+    V, D = 70_000_000, 32
+    g = torch.Generator(device=card).manual_seed(3)
+    table = torch.empty(V, D, device=card)
+    table.normal_(generator=g)
+    ids = torch.randint(1 << 26, V, (4096, 8), generator=g, device=card,
+                        dtype=torch.int32)
+    ids[:, -1] = -1
+    ids[0] = V - 1
+    assert int(ids[ids >= 0].min()) * D >= 2**31
+    _check_bag(ids, table, "vec")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,cols,want_route", [
+    (torch.float32, 1296, "vec"),    # the deep tower's padded buffer
+    (torch.float32, 1293, "warp"),   # unpadded: rows not 16-byte aligned
+    (torch.bfloat16, 1296, "vec"),
+    (torch.bfloat16, 1293, "warp"),
+])
+def test_embedding_bag_strided_out_with_a_padded_row(card, dtype, cols,
+                                                     want_route):
+    """40 bags a row written into the first 1,280 columns of a wider
+    buffer; the columns past them keep their bits."""
+    B, F, L, V, D = 333, 40, 8, 5000, 32
+    ids, table = _bag_inputs(card, B * F, L, V, D, dtype, cols)
+    buf = torch.full((B, cols), float("nan"), dtype=dtype, device=card)
+    buf[:, F * D:] = 3.0
+    rest = buf[:, F * D:].clone()
+    view = buf[:, :F * D]
+    got = _check_bag(ids, table, want_route, out=view)
+    assert got.data_ptr() == view.data_ptr()
+    assert torch.equal(buf[:, F * D:], rest)
+    assert bool(torch.isfinite(buf[:, :F * D]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [8, 16, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_warp_covers_narrow_and_odd_rows(card, dtype, D):
+    """The warp route on a table whose base is one element past 16-byte
+    alignment (D = 80 takes three passes over the row's columns)."""
+    V = 777
+    ids, src = _bag_inputs(card, 300, 11, V, D, dtype, D)
+    buf = torch.empty(V * D + 1, dtype=dtype, device=card)
+    table = buf[1:].view(V, D)
+    table.copy_(src)
+    assert table.is_contiguous() and table.data_ptr() % 16
+    _check_bag(ids, table, "warp")
+
+
+@pytest.mark.gpu
+def test_embedding_bag_misaligned_base_takes_warp_never_the_plain_version(
+        card, monkeypatch):
+    """A CUDA tensor reaches a kernel: with the plain version made to
+    raise, a misaligned table still launches the warp kernel."""
+    ids, src = _bag_inputs(card, 64, 8, 100, 32, torch.float32, 1)
+    buf = torch.empty(100 * 32 + 1, device=card)
+    table = buf[1:].view(100, 32)
+    table.copy_(src)
+    want = embedding_bag_ref(ids, table)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(bag_ops, "embedding_bag_ref", refuse)
+    before = kernels.LAUNCHES.get("embedding_bag.warp", 0)
+    got = embedding_bag(ids, table)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag.warp"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_route_counts(card):
+    """One count under ``embedding_bag`` and one under the route per call,
+    whatever the route: 3 vec calls and 2 warp calls."""
+    ids, table = _bag_inputs(card, 50, 4, 60, 32, torch.float32, 2)
+    odd = torch.randn(60, 6, device=card)
+    kernels.reset_launches()
+    for _ in range(3):
+        embedding_bag(ids, table)
+    for _ in range(2):
+        embedding_bag(ids, odd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"embedding_bag": 5, "embedding_bag.vec": 3,
+                                "embedding_bag.warp": 2}
+
+
 @pytest.mark.gpu
 def test_wide_deep_on_the_card_matches_the_cpu(card):
     """SMOKE in float32 (TF32 off): serve and retrieval forwards on cuda
@@ -374,6 +518,7 @@ def test_wide_deep_on_the_card_matches_the_cpu(card):
     on_host = recsys.WideDeep(cfg, "cpu")
     on_host.load_state_dict(on_card.state_dict())
     before = kernels.LAUNCHES.get("embedding_bag", 0)
+    before_vec = kernels.LAUNCHES.get("embedding_bag.vec", 0)
     for shape in ("serve_p99", "retrieval_cand"):
         spec = wd.SMOKE_SHAPES[shape]
         step = wd.make_step(cfg, spec.kind)
@@ -381,6 +526,7 @@ def test_wide_deep_on_the_card_matches_the_cpu(card):
         want = step(on_host, wd.make_batch(cfg, spec, seed=1, device="cpu"))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
     assert kernels.LAUNCHES["embedding_bag"] == before + 2
+    assert kernels.LAUNCHES["embedding_bag.vec"] == before_vec + 2
 
 
 # ------------------------------------------------ fused chains with K1 inside

@@ -189,9 +189,9 @@ def test_one_kernel_call_per_forward_and_no_launch_on_the_cpu(pair):
     calls = []
     real = pr.bag_sum
 
-    def spy(ids, table):
+    def spy(ids, table, out=None):
         calls.append(tuple(ids.shape))
-        return real(ids, table)
+        return real(ids, table, out=out)
 
     before = dict(kernels.LAUNCHES)
     pr.bag_sum = spy
@@ -201,6 +201,66 @@ def test_one_kernel_call_per_forward_and_no_launch_on_the_cpu(pair):
         pr.bag_sum = real
     assert calls == [(8 * pc.n_sparse, pc.max_bag)]
     assert dict(kernels.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, 1296),
+                                         (torch.bfloat16, 1296)])
+def test_mlp_input_width_pads_rows_to_16_bytes(dtype, want):
+    """1,293 inputs (40 x 32 bag sums and 13 dense) padded to whole 16-byte
+    pieces: 1,296 fp32 columns (5,184 bytes), 1,296 bf16 (2,592)."""
+    cfg = dataclasses.replace(pwd.CONFIG, dtype=dtype)
+    assert cfg.n_sparse * cfg.embed_dim + cfg.n_dense == 1293
+    assert pr.mlp_input_width(cfg) == want
+    assert want * dtype.itemsize % 16 == 0
+
+
+def test_deep_tower_writes_bags_into_the_mlp_input(pair):
+    """The one bag call of a forward writes into columns ``[0, F*dim)`` of
+    a ``[B, mlp_input_width]`` buffer (a strided view, no concat), and the
+    tower's output equals the reference's concat-then-MLP."""
+    jc, params, pc, model = pair
+    batch = jr.synthetic_batch(jc, 16, seed=5, with_labels=False)
+    seen = []
+    real = pr.bag_sum
+
+    def spy(ids, table, out=None):
+        seen.append((tuple(out.shape), out.stride()))
+        return real(ids, table, out=out)
+
+    pr.bag_sum = spy
+    try:
+        got = pr.deep_tower(model, _torch(batch), pc)
+    finally:
+        pr.bag_sum = real
+    n_bags = pc.n_sparse * pc.embed_dim
+    assert seen == [((16, n_bags), (pr.mlp_input_width(pc), 1))]
+    want = jr.deep_tower(params, _jax(batch), jc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_model_embedding_bag_with_out_matches_reference():
+    """``embedding_bag(table, ids, offsets, out=view)`` fills the view of a
+    wider buffer with the reference model's lookup and touches nothing
+    else."""
+    cfg = jr.WideDeepConfig(vocab_sizes=tuple([64] * 4), n_sparse=4,
+                            wide_vocab=32, n_items=16, item_dim=8,
+                            mlp=(16,), max_bag=3)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(-1, 64, size=(10, 4, 3)).astype(np.int32)
+    table = rng.normal(size=(cfg.total_rows, cfg.embed_dim)).astype(
+        np.float32)
+    offsets = cfg.field_offsets()
+    buf = torch.full((10, 4 * cfg.embed_dim + 8), -5.0)
+    view = buf[:, :4 * cfg.embed_dim]
+    got = pr.embedding_bag(torch.as_tensor(table), torch.as_tensor(ids),
+                           torch.as_tensor(offsets), out=view)
+    assert got.data_ptr() == buf.data_ptr()
+    want = jr.embedding_bag(jnp.asarray(table), jnp.asarray(ids),
+                            jnp.asarray(offsets))
+    np.testing.assert_allclose(buf[:, :4 * cfg.embed_dim].numpy(),
+                               np.asarray(want), rtol=1e-4, atol=1e-4)
+    assert bool((buf[:, 4 * cfg.embed_dim:] == -5.0).all())
 
 
 def test_init_params_laws_and_seed():

@@ -103,6 +103,44 @@ def test_engine_stops_on_eos_and_full_slot():
     assert len(eng.run()[0].out_tokens) == 3
 
 
+def test_slot_past_the_cache_end_drops_its_write_as_the_reference():
+    """A 15-token prompt fills its 16-row slot after one tick, and the
+    next ticks decode that idle slot at position 16: the reference drops
+    the out-of-range cache write (``.at[].set``), so must the port."""
+    jc, params, pc, model = _pair("tiny")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 61, n).astype(np.int32) for n in (15, 3)]
+    ref = RefEngine(jc, params, n_slots=2, max_len=16, eos_id=-1)
+    port = ServeEngine(pc, model, n_slots=2, max_len=16, eos_id=-1,
+                       device="cpu")
+    for i, p in enumerate(prompts):
+        ref.submit(RefRequest(rid=i, prompt=p, max_tokens=4))
+        port.submit(Request(rid=i, prompt=p, max_tokens=4))
+    want, got = ref.run(), port.run()
+    assert ref.ticks == port.ticks == 3
+    done = {r.rid: r.out_tokens for r in got}
+    assert [len(done[0]), len(done[1])] == [2, 4]
+    assert [r.rid for r in got] == [r.rid for r in want]
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+
+
+def test_engine_accepts_the_greedy_keyword_as_the_reference():
+    """``greedy=True`` is accepted and changes nothing, in both engines."""
+    jc, params, pc, model = _pair("tiny")
+    prompt = _prompts(61, 1, 4, 5, seed=3)[0]
+    outs = []
+    for eng in (RefEngine(jc, params, n_slots=1, max_len=16, eos_id=-1,
+                          greedy=True),
+                ServeEngine(pc, model, n_slots=1, max_len=16, eos_id=-1,
+                            greedy=True, device="cpu"),
+                ServeEngine(pc, model, n_slots=1, max_len=16, eos_id=-1,
+                            device="cpu")):
+        req_type = RefRequest if isinstance(eng, RefEngine) else Request
+        eng.submit(req_type(rid=0, prompt=prompt, max_tokens=3))
+        outs.append(eng.run()[0].out_tokens)
+    assert outs[0] == outs[1] == outs[2] and len(outs[0]) == 3
+
+
 def test_engine_device_rules():
     _, _, cfg, model = _pair("tiny")
     with pytest.raises(ValueError, match="params are on"):

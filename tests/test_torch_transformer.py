@@ -121,6 +121,35 @@ def test_decode_step_multi_matches_reference(pair):
         _close(cp[n], cj[n])
 
 
+_TINY = dict(name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+             d_ff=64, vocab_size=61, block_q=8, block_kv=8)
+
+
+def test_cache_write_past_the_end_clamps_its_start_as_the_reference():
+    """8 tokens at ``cache_index=10`` into a 16-row cache: the reference's
+    ``dynamic_update_slice`` writes rows 8-15 (its start clamps to
+    Smax - S) while the queries keep positions 10-17; the port the same."""
+    jc = jt.TransformerConfig(**_TINY, dtype=jnp.float32)
+    pc = pt.TransformerConfig(**_TINY, dtype=torch.float32)
+    params = jt.init_params(jc, jax.random.PRNGKey(0))
+    model = pt.params_from_reference(pc, jax.tree.map(np.asarray, params),
+                                     device="cpu")
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, 61, (1, 8))
+    cj = jt.init_kv_cache(jc, 1, 16)
+    cp = pt.init_kv_cache(pc, 1, 16, device="cpu")
+    lj, cj, _ = jt.forward(params, jnp.asarray(toks, jnp.int32), jc,
+                           kv_caches=cj, cache_index=10)
+    lp, cp, _ = pt.forward(model, torch.as_tensor(toks), pc, kv_caches=cp,
+                           cache_index=10)
+    assert lp.shape == (1, 8, 61) and bool(torch.isfinite(lp).all())
+    _close(lp, lj)
+    for n in ("k", "v"):
+        assert np.asarray(cj[n])[:, :, 8:].any()
+        _close(cp[n][:, :, 8:], np.asarray(cj[n])[:, :, 8:])
+        _close(cp[n], cj[n])
+
+
 def test_init_params_laws_and_seed():
     _, cfg = _configs("olmoe_1b_7b")
     a = pt.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
