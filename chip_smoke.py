@@ -9,16 +9,21 @@ Phases, each printing one JSON line:
 2. build   — every CUDA kernel of the port compiled with nvcc (sm_90a), one
              process per source, all started together, timed as set-up;
 3. kernel  — the WCOJ probe held against its plain PyTorch version on the
-             card (exact equality), with its time, the plain version's, a
-             one-call PyTorch yardstick and the least time the card could
-             take (``bound_ms``): first on a seeded synthetic CSR drawn
-             with the store generator's own Zipf sampler;
+             card (exact equality), on its ``fence`` route (a walk down the
+             CSR's search index) and its ``search`` route (a binary
+             search), each timed over batches of 10 calls queued behind a
+             device sleep, with the index's build time, the plain
+             version's time, a one-call PyTorch yardstick
+             (``searchsorted``) and the least time the card could take
+             (``bound_ms``): first on a seeded synthetic CSR drawn with the
+             store generator's own Zipf sampler;
 4. main    — the graph path at full size: an LDBC-like store at sf=100
              (about 1.7M vertices, 13.4M edges), ``GOpt(store)`` on cuda
              (GLogue's triangle counts probe through the kernel), then the
              25 benchmark queries twice: the first run of each fused expand
              chain measures it on the per-hop loop, the second dispatches
-             it as one fused program whose probes launch the kernel;
+             it as one fused program whose probes launch the kernel; every
+             launch of the probe on its ``fence`` route;
 5. kernel  — the probe again on two membership probes GLogue made in
              phase 4, captured on the card: the one with the most probes
              and the one with the most binary-search steps;
@@ -70,7 +75,8 @@ Phases, each printing one JSON line:
              the reference's tolerance), on the ``vec`` route, timed over
              batches of 10 calls queued behind a device sleep and as one
              call, with one ``torch.nn.functional.embedding_bag`` call as
-             the yardstick;
+             the yardstick; then ``serve_p99`` on the ``warp`` route,
+             through a view of the same table one element past its base;
 12. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``.
 
@@ -112,6 +118,7 @@ GMM_FP32_TOL, ATTENTION_FP32_TOL = 1e-4, 2e-3
 GMM_BATCH = 10      # grouped-matmul calls per timed run
 ATTN_BATCH = 10     # attention calls per timed run, queued behind a sleep
 BAG_BATCH = 10      # embedding-bag calls per timed run, queued behind a sleep
+PROBE_BATCH = 10    # WCOJ probe calls per timed run, queued behind a sleep
 QUEUE_CYCLES = 4_000_000  # ~2 ms at the H100's clocks: covers the batch
 FLUSH_BYTES = 100 << 20   # written before a cold-L2 run
 PROFILE_ATTEMPTS = 3  # traces of a step before an empty one fails
@@ -122,6 +129,11 @@ CHECK_RTOL, CHECK_ATOL = 2e-3, 2e-4
 # tolerance, and the float32 cuda-vs-cpu tolerances of the SMOKE check
 RECSYS_RUNS = {"serve_p99": 50, "serve_bulk": 3, "retrieval_cand": 20}
 BAG_TOL = 1e-4
+# K1's gates: ms queued on the fence route, and the captured calls against
+# the search route in the same run (the walk is bound by issue where the
+# CSR sits in L2; see PERF.md section 6)
+PROBE_LIMIT_MS = {"synthetic_zipf": 1.1}
+PROBE_SEARCH_RATIO = {"glogue_most_rows": 1.05, "glogue_most_steps": 1.0}
 RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5
 
 # The 25 benchmark queries (the paper's Appendix A on the LDBC schema
@@ -299,10 +311,12 @@ def synthetic_probe(seed: int, device):
     targets, so in-degrees follow the generator's skew, capped near the
     source count.  Probe rows are drawn per edge (degree-weighted, as a
     WCOJ step probes), half the targets aim at a real neighbour, and one
-    probe in sixteen goes to a uniformly random row, possibly empty."""
+    probe in sixteen goes to a uniformly random row, possibly empty.
+    Returns the probe's arguments and the CSR's search index."""
     import numpy as np
     import torch
     from repro_torch.graphdb.ldbc import _zipf_targets
+    from repro_torch.kernels.wcoj_intersect.ops import build_search_index
     rng = np.random.default_rng(seed)
     n_rows, n_src, n_edges, n_probe = 1 << 20, 180_000, 1 << 24, 1 << 24
     src = rng.integers(0, n_src, size=n_edges, dtype=np.int64)
@@ -329,47 +343,78 @@ def synthetic_probe(seed: int, device):
                        prow)
     pos_map = torch.randperm(nnz, generator=g, device=device)
     i32 = torch.int32
-    return (indptr.to(i32), nbr.to(i32), prow.to(i32).contiguous(),
-            tgt.to(i32).contiguous(), pos_map.to(i32))
+    indices = nbr.to(i32)
+    return (indptr.to(i32), indices, prow.to(i32).contiguous(),
+            tgt.to(i32).contiguous(), pos_map.to(i32),
+            build_search_index(indices))
 
 
-def probe_phase(label: str, indptr, indices, rows, targets, pos_map,
+def probe_phase(label: str, indptr, indices, rows, targets, pos_map, index,
                 reps: int = REPS) -> dict:
-    """Kernel vs plain version on one probe set: exact equality, timings,
-    the one-call yardstick and the bound."""
+    """The probe on its ``fence`` route (the main path's) and its
+    ``search`` route against the plain version on one probe set: exact
+    equality on both, their times over batches of ``PROBE_BATCH`` calls
+    queued behind a device sleep (and the fence route's one-call time),
+    the index's build time, the one-call yardstick and the bound."""
     import torch
-    from repro_torch.kernels.wcoj_intersect.ops import wcoj_intersect
-    from repro_torch.kernels.wcoj_intersect.ref import wcoj_intersect_ref
+    from repro_torch import kernels
+    from repro_torch.kernels.wcoj_intersect.ops import (build_search_index,
+                                                        route,
+                                                        wcoj_intersect)
+    from repro_torch.kernels.wcoj_intersect.ref import (fence_reads,
+                                                        wcoj_intersect_ref)
     args = (indptr, indices, rows, targets, pos_map)
-    got = wcoj_intersect(*args)
+    which = route(indices, index)
+    require(which == "fence", f"{label}: route {which}, expected fence")
+    counted = dict(kernels.LAUNCHES)
+    got = {"fence": wcoj_intersect(*args, index),
+           "search": wcoj_intersect(*args)}
     want = wcoj_intersect_ref(*args)
     torch.cuda.synchronize()
+    for r in got:
+        key = f"wcoj_intersect.{r}"
+        require(kernels.LAUNCHES.get(key, 0) == counted.get(key, 0) + 1,
+                f"{label}: no {key} launch")
     names = ("found", "epos")
-    for n, a, b in zip(names, got, want):
-        require(a.dtype == b.dtype and a.shape == b.shape,
-                f"{label}: {n} dtype/shape differ from the plain version")
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-              if a.numel() else 0 for a, b in zip(got, want))
-    require(equal, f"{label}: kernel output differs from the plain "
-                   f"version (max abs err {err})")
+    err = 0
+    for r, out in got.items():
+        for n, a, b in zip(names, out, want):
+            require(a.dtype == b.dtype and a.shape == b.shape,
+                    f"{label}: {r} {n} dtype/shape differ from the plain "
+                    f"version")
+        e = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                if a.numel() else 0 for a, b in zip(out, want))
+        require(all(torch.equal(a, b) for a, b in zip(out, want)),
+                f"{label}: the {r} kernel differs from the plain version "
+                f"(max abs err {e})")
+        err = max(err, e)
     R = rows.shape[0]
-    hits = int(got[0].sum())
+    hits = int(want[0].sum())
     deg = (indptr[1:] - indptr[:-1]).to(torch.int64)
     pdeg = deg[rows.to(torch.int64)]
     steps = search_steps(indptr, rows)
+    nnz = int(indices.shape[0])
     # compulsory traffic, each input read at most once: rows and targets;
     # two indptr words and one indices word per probe, but no more than
     # those arrays hold; one pos_map word per hit, likewise capped; found
     # (1 B) and epos (4 B) written once
-    nnz = int(indices.shape[0])
     nbytes = (R * (4 + 4 + 1 + 4) + min(4 * indptr.shape[0], 8 * R)
               + min(4 * nnz, 4 * R))
     if pos_map is not None:
         nbytes += min(4 * nnz, 4 * hits)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = steps / SCALAR_OPS_PER_S * 1e3
-    kernel_ms = cuda_ms(lambda: wcoj_intersect(*args), reps)
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+
+    def fence():
+        return wcoj_intersect(*args, index)
+
+    # one call per event pair would add the wrapper's host time (kept as
+    # kernel_ms_single): batches queued behind a device sleep
+    kernel_ms = cuda_ms(fence, reps, batch=PROBE_BATCH, queued=True)
+    search_ms = cuda_ms(lambda: wcoj_intersect(*args), reps,
+                        batch=PROBE_BATCH, queued=True)
+    index_build_ms = cuda_ms(lambda: build_search_index(indices), reps)
     plain_ms = cuda_ms(lambda: wcoj_intersect_ref(*args), max(3, reps // 4),
                        warmup=1)
     # yardstick: one torch.searchsorted over packed (row << 32 | nbr) keys,
@@ -378,18 +423,41 @@ def probe_phase(label: str, indptr, indices, rows, targets, pos_map,
         torch.arange(deg.shape[0], device=deg.device), deg)
     keys = (edge_row << 32) | indices.to(torch.int64)
     q = (rows.to(torch.int64) << 32) + targets.to(torch.int64)
-    library_ms = cuda_ms(lambda: torch.searchsorted(keys, q), reps)
+    library_ms = cuda_ms(lambda: torch.searchsorted(keys, q), reps,
+                         batch=PROBE_BATCH, queued=True)
     return {"phase": "kernel", "name": "wcoj_intersect", "input": label,
-            "rows": R, "nnz": nnz,
+            "route": which, "rows": R, "nnz": nnz,
             "csr_rows": int(deg.shape[0]), "max_degree": int(deg.max()),
             "mean_probe_degree": float(pdeg.to(torch.float64).mean()),
-            "hits": hits, "equal": equal, "max_abs_err": err,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "hits": hits, "equal": True, "max_abs_err": err,
+            "kernel_ms": kernel_ms, "kernel_ms_single": cuda_ms(fence, reps),
+            "search_ms": search_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
-            "bytes": nbytes, "search_steps": steps}
+            "pct_of_bound": 100 * bound_ms / kernel_ms,
+            "kernel_over_library": kernel_ms / library_ms,
+            "index_bytes": index.numel() * index.element_size(),
+            "index_build_ms": index_build_ms,
+            "bytes": nbytes, "search_steps": steps,
+            "sector_reads": fence_reads(indptr, rows)}
+
+
+def probe_gates(rec: dict) -> None:
+    """K1's limits on one kernel phase: its ms queued, its ms against the
+    search route's, and faster than the ``searchsorted`` yardstick."""
+    label, ms = rec["input"], rec["kernel_ms"]
+    if label in PROBE_LIMIT_MS:
+        require(ms <= PROBE_LIMIT_MS[label],
+                f"{label}: fence {ms:.4g} ms > {PROBE_LIMIT_MS[label]} ms")
+    if label in PROBE_SEARCH_RATIO:
+        limit = PROBE_SEARCH_RATIO[label] * rec["search_ms"]
+        require(ms <= limit, f"{label}: fence {ms:.4g} ms > "
+                             f"{PROBE_SEARCH_RATIO[label]} x search "
+                             f"{rec['search_ms']:.4g} ms")
+    require(ms < rec["library_ms"], f"{label}: fence {ms:.4g} ms not "
+                                    f"faster than searchsorted "
+                                    f"{rec['library_ms']:.4g} ms")
 
 
 # --------------------------------------------------------------- main path
@@ -463,29 +531,21 @@ def run_queries(gopt, reps: int = 2) -> list[dict]:
     return out
 
 
-def main_path(sf: float) -> tuple[dict, dict]:
-    """Store -> GOpt on cuda -> the 25 queries twice.  Returns the phase
-    record and the inputs of two GLogue intersect calls: the one with the
-    most probes and the one with the most search steps."""
-    import torch
-    from repro_torch import kernels
-    from repro_torch.core.gopt import GOpt
-    from repro_torch.graphdb.ldbc import generate_ldbc
-    from repro_torch.graphdb.torch_backend import torch_spec
-    t0 = time.perf_counter()
-    store = generate_ldbc(sf=sf, seed=7)
-    gen_s = time.perf_counter() - t0
-    ops = torch_spec("cuda").operators(store)
+def capture_glogue(ops) -> dict:
+    """Wraps ``ops.intersect`` so each call is counted and the heaviest two
+    kept (inputs stay on the card): the one with the most probes and the
+    one with the most binary-search steps.  ``del ops.intersect`` ends it;
+    ``glogue_probes`` turns the record into kernel inputs."""
     calls = {"n": 0, "rows": 0, "steps": 0, "most_rows": None,
              "most_steps": None}
     real_intersect = ops.intersect
 
     def capture(csr, rows_local, targets):
-        # record GLogue's heaviest probes (inputs stay on the card); the
-        # step count costs one reduction and one sync per call
+        # the step count costs one reduction and one sync per call
         n = int(rows_local.shape[0])
         if n:                           # an empty probe launches nothing
-            steps = search_steps(ops._csr_dev(csr)[0], ops._col(rows_local))
+            steps = search_steps(ops._csr_dev(csr)[0],
+                                 ops._col(rows_local))
             calls["n"] += 1
             calls["rows"] += n
             calls["steps"] += steps
@@ -497,6 +557,38 @@ def main_path(sf: float) -> tuple[dict, dict]:
         return real_intersect(csr, rows_local, targets)
 
     ops.intersect = capture
+    return calls
+
+
+def glogue_probes(ops, calls: dict) -> dict:
+    """``{"glogue_most_rows" | "glogue_most_steps": (indptr, indices,
+    rows, targets, pos_map, index)}`` of the captured calls."""
+    import torch
+    probes = {}
+    for label in ("most_rows", "most_steps"):
+        _, _, csr, rows, targets = calls[label]
+        indptr, indices, pos, index = ops._csr_dev(csr, probe=True)
+        probes[f"glogue_{label}"] = (
+            indptr, indices, ops._col(rows).to(torch.int32).contiguous(),
+            ops._col(targets).to(torch.int32).contiguous(), pos, index)
+    return probes
+
+
+def main_path(sf: float) -> tuple[dict, dict]:
+    """Store -> GOpt on cuda -> the 25 queries twice.  Returns the phase
+    record and the inputs of two GLogue intersect calls (with their CSR's
+    search index): the one with the most probes and the one with the most
+    search steps."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.graphdb.ldbc import generate_ldbc
+    from repro_torch.graphdb.torch_backend import torch_spec
+    t0 = time.perf_counter()
+    store = generate_ldbc(sf=sf, seed=7)
+    gen_s = time.perf_counter() - t0
+    ops = torch_spec("cuda").operators(store)
+    calls = capture_glogue(ops)
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -524,6 +616,11 @@ def main_path(sf: float) -> tuple[dict, dict]:
     require(launches["wcoj_intersect"] - glogue_launches == sum(
         sum(q["probe_launches"]) for q in queries),
         "query runs and wcoj_intersect launches disagree")
+    require(launches.get("wcoj_intersect.fence", 0)
+            == launches["wcoj_intersect"],
+            f"{launches.get('wcoj_intersect.fence', 0)} of "
+            f"{launches['wcoj_intersect']} wcoj_intersect launches on the "
+            f"fence route")
     rec = {"phase": "main", "sf": sf, "vertices": store.n_vertices,
            "edges": store.n_edges, "generate_s": gen_s, "gopt_s": gopt_s,
            "glogue_freqs": len(gopt.glogue.freq),
@@ -541,14 +638,7 @@ def main_path(sf: float) -> tuple[dict, dict]:
            "warm_ms_total_ok": sum(q["ms"] for q in ok),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "queries": queries}
-    probes = {}
-    for label in ("most_rows", "most_steps"):
-        _, _, csr, rows, targets = calls[label]
-        indptr, indices, pos = ops._csr_dev(csr)
-        probes[f"glogue_{label}"] = (
-            indptr, indices, ops._col(rows).to(torch.int32).contiguous(),
-            ops._col(targets).to(torch.int32).contiguous(), pos)
-    return rec, probes
+    return rec, glogue_probes(ops, calls)
 
 
 def _rows_equal(name: str, what: str, a, b) -> None:
@@ -1130,10 +1220,10 @@ def recsys_path() -> tuple[dict, dict, dict]:
     return rec, copy_rec, captured
 
 
-def bag_phase(label: str, ids, table, out_geom=None,
+def bag_phase(label: str, ids, table, out_geom=None, want_route="vec",
               reps: int = REPS) -> dict:
     """The embedding-bag kernel against its plain version on one captured
-    lookup, on the route it must take (``vec``), with the
+    lookup, on the route it must take (``want_route``), with the
     ``F.embedding_bag`` yardstick and the bound.  With ``out_geom`` (rows,
     row stride, bag columns of the deep tower's buffer) both write through
     ``out`` into such a buffer, whose other columns must keep their bits."""
@@ -1158,7 +1248,8 @@ def bag_phase(label: str, ids, table, out_geom=None,
         rest = bufs[0][:, cols:].clone()
         out, want_out = bufs[0][:, :cols], bufs[1][:, :cols]
     which = route(ids, table, out)
-    require(which == "vec", f"{label}: route {which}, expected vec")
+    require(which == want_route,
+            f"{label}: route {which}, expected {want_route}")
     counted = kernels.LAUNCHES.get(f"embedding_bag.{which}", 0)
     got = embedding_bag(ids, table, out=out)
     want = embedding_bag_ref(ids, table, out=want_out)
@@ -1197,12 +1288,12 @@ def bag_phase(label: str, ids, table, out_geom=None,
     plain_ms = cuda_ms(lambda: embedding_bag_ref(ids, table, out=want_out),
                        max(3, reps // 4), warmup=1)
     # yardstick: one F.embedding_bag call into a fresh [B, D] (it has no
-    # strided output), its clamped ids and per-slot weights made before
-    # the timing (not part of the port)
+    # strided output), its clamped ids and per-slot weights (0 for padding
+    # and ids past the table) made before the timing (not part of the port)
     library_ms = None
     if out is None:
-        lib_ids = ids.clamp(min=0)
-        weights = (ids >= 0).to(table.dtype)
+        lib_ids = ids.clamp(0, V - 1)
+        weights = valid.to(table.dtype)
         library_ms = cuda_ms(lambda: F.embedding_bag(
             lib_ids, table, mode="sum", per_sample_weights=weights), reps,
             batch=BAG_BATCH, queued=True)
@@ -1302,10 +1393,11 @@ def run() -> int:
     built = _build.build_all()
     require(len(built) == 4, f"expected 4 kernel sources, found "
                              f"{sorted(s.name for s in built)}")
-    spills = [ln for src, b in built.items() if src.stem == "embedding_bag"
-              for ln in b["log"].splitlines() if "spill" in ln
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    require(not spills, f"embedding_bag: ptxas spills {spills}")
+    for stem in ("embedding_bag", "wcoj_intersect"):
+        spills = [ln for src, b in built.items() if src.stem == stem
+                  for ln in b["log"].splitlines() if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        require(not spills, f"{stem}: ptxas spills {spills}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {src.stem: {
               "seconds": b["seconds"], "cached": b["cached"],
@@ -1317,6 +1409,7 @@ def run() -> int:
     dev = torch.device("cuda")
     synth = probe_phase("synthetic_zipf", *synthetic_probe(SEED, dev))
     emit(synth)
+    probe_gates(synth)
 
     main_rec, probes = main_path(SF)
     emit(main_rec)
@@ -1324,6 +1417,7 @@ def run() -> int:
     for label, inputs in probes.items():
         captured[label] = probe_phase(label, *inputs)
         emit(captured[label])
+        probe_gates(captured[label])
     del probes, inputs
 
     emit(cross_check(CHECK_SF))
@@ -1364,6 +1458,15 @@ def run() -> int:
     # the third form: serve_bulk written into the deep tower's buffer
     bag_phases.append(bag_phase("embedding_bag_serve_bulk_into_mlp_input",
                                 *bags["serve_bulk"]))
+    # the warp route: serve_p99 through a view of the same table storage
+    # one element past its base (no copy), so its rows are not 16-byte
+    # aligned; ids of the last row fall past the view and add nothing
+    ids, table = bags["serve_p99"][:2]
+    V, D = table.shape
+    shifted = table.view(-1)[1:1 + (V - 1) * D].view(V - 1, D)
+    bag_phases.append(bag_phase("embedding_bag_serve_p99_warp", ids,
+                                shifted, want_route="warp"))
+    del ids, table, shifted
     for rec in bag_phases:
         emit(rec)
     del bags

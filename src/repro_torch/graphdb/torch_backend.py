@@ -13,7 +13,8 @@ the host once, at delivery (``to_host``).
   gather sized exactly by the degree sum, which the ``max_out`` guard
   checks before anything is allocated.
 - ``intersect`` -> the hand-written CUDA ``wcoj_intersect`` kernel: one
-  launch per call, a per-probe binary search over the CSR itself for every
+  launch per call, a per-probe walk down the CSR's fence index (built on
+  the device at the CSR's first probe and cached beside it) for every
   degree (no padded-ELL tiles, no slabs, no split by degree).  On a CPU
   device the wrapper runs the kernel's plain version.
 - relational tail: ``join`` is a sort-merge join, ``group_reduce`` a
@@ -48,7 +49,8 @@ from repro_torch.core.physical import (ChainStep, ExpandChainNode, ExpandNode,
 from repro_torch.core.physical_spec import (CostParams, OperatorSet,
                                             PhysicalSpec, register_spec)
 from repro_torch.graphdb import torchops
-from repro_torch.kernels.wcoj_intersect.ops import wcoj_intersect
+from repro_torch.kernels.wcoj_intersect.ops import (build_search_index,
+                                                    wcoj_intersect)
 
 _I32_MIN = np.iinfo(np.int32).min
 _I32_MAX = np.iinfo(np.int32).max
@@ -186,7 +188,8 @@ class FusedChain:
         if in_bucket > n:
             src = torch.cat([src, src.new_zeros(in_bucket - n)])
         csrs = tuple((tuple(ops._csr_dev(o.csr) for o in h.orients),
-                      tuple(ops._csr_dev(p.orient.csr) for p in h.probes))
+                      tuple(ops._csr_dev(p.orient.csr, probe=True)
+                            for p in h.probes))
                      for h in self.spec.hops)
         vp = tuple(ops._vprop_dev(p) for p in vprops)
         ep = tuple(ops._eprop_dev(p) for p in eprops)
@@ -237,7 +240,8 @@ class TorchOperators(OperatorSet):
                 "torch backend stages vertex ids and CSR offsets through "
                 f"int32; store has {store.n_vertices} vertices / "
                 f"{store.n_edges} edges")
-        self._dev = {}    # id(csr) -> (csr, indptr, indices, pos | None)
+        # id(csr) -> [csr, indptr, indices, pos | None, search index | None]
+        self._dev = {}
         self._props = {}  # ("v"|"e", prop) -> device property column(s)
         self._z32 = torch.zeros(0, dtype=torch.int32, device=self.device)
         self._chains = {}     # (chain signature, csr ids) -> FusedChain
@@ -276,13 +280,13 @@ class TorchOperators(OperatorSet):
         prog.pinned = bool(pinned)
         return True
 
-    def _chain_probe(self, indptr, indices, rows, targets, pos_map):
+    def _chain_probe(self, indptr, indices, rows, targets, pos_map, index):
         """A membership probe inside a fused chain: one ``wcoj_intersect``
         kernel launch on the card (the plain version on the CPU), counted
         as ``probe:fused_chain`` beside the ``dispatch:intersect`` of the
         per-operator probes."""
         self.kernel_stats.record("probe", "fused_chain")
-        return wcoj_intersect(indptr, indices, rows, targets, pos_map)
+        return wcoj_intersect(indptr, indices, rows, targets, pos_map, index)
 
     def block_ready(self, arrays):
         if self.device.type == "cuda":
@@ -448,15 +452,20 @@ class TorchOperators(OperatorSet):
                          + pos)
 
     # --------------------------------------------------------------- pattern
-    def _csr_dev(self, csr):
+    def _csr_dev(self, csr, probe: bool = False):
         """Device twin (int32) of a host CSR, keyed by object identity; the
-        stored host reference guards against address reuse."""
+        stored host reference guards against address reuse.  Returns
+        ``(indptr, indices, pos, index)``: ``index`` is the K1 search index
+        (``build_search_index``), built on the device at the first
+        ``probe`` of the CSR and kept with it; None until then."""
         ent = self._dev.get(id(csr))
         if ent is None or ent[0] is not csr:
-            ent = self._dev[id(csr)] = (
+            ent = self._dev[id(csr)] = [
                 csr, self._stage(csr.indptr), self._stage(csr.indices),
-                self._stage(csr.pos) if csr.pos is not None else None)
-        return ent[1:]
+                self._stage(csr.pos) if csr.pos is not None else None, None]
+        if probe and ent[4] is None:
+            ent[4] = build_search_index(ent[2])
+        return tuple(ent[1:])
 
     def scan(self, lo: int, hi: int):
         return torch.arange(int(lo), int(hi), dtype=torch.int32,
@@ -469,7 +478,7 @@ class TorchOperators(OperatorSet):
         rows = self._col(rows_local)
         if rows.shape[0] == 0:
             return self._z32, self._z32, self._z32
-        indptr, indices, pos = self._csr_dev(csr)
+        indptr, indices, pos, _ = self._csr_dev(csr)
         total = torchops.csr_expand_total(indptr, rows)  # control-plane sync
         if max_out is not None and total > max_out:
             raise RuntimeError(f"intermediate blow-up: expansion would "
@@ -492,9 +501,9 @@ class TorchOperators(OperatorSet):
         if rows.shape[0] == 0:
             return (torch.zeros(0, dtype=torch.bool, device=self.device),
                     self._z32)
-        indptr, indices, pos = self._csr_dev(csr)
+        indptr, indices, pos, index = self._csr_dev(csr, probe=True)
         self.kernel_stats.record("dispatch", "intersect")
-        return wcoj_intersect(indptr, indices, rows, tgt, pos)
+        return wcoj_intersect(indptr, indices, rows, tgt, pos, index)
 
     # --------------------------------------------------------- relational tail
     def join(self, lkeys, rkeys, max_out=None):

@@ -212,7 +212,9 @@ def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
     the membership probe, ``wcoj_intersect``'s signature (the backend
     passes the kernel's wrapper; the reference picked padded-ELL tiles or
     a binary search by degree, the kernel searches the CSR at any
-    degree)."""
+    degree).  ``csrs[k]`` holds each hop's ``(indptr, indices, pos,
+    index)`` per orientation and per probe; a probe's ``index`` is the
+    CSR's search index."""
     source_col, hops = desc
 
     def eval_ref(ref, cols, vprops, eprops):
@@ -289,7 +291,7 @@ def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
             acc_tv = torch.zeros(cap, dtype=_I32, device=dev)
             acc_p = torch.zeros(cap, dtype=_I32, device=dev)
             for j, (lo, hi, tidx, has_pos) in enumerate(orients):
-                _, indices, pos = csrs[k][0][j]
+                _, indices, pos, _ = csrs[k][0][j]
                 in_j = (pos_out >= offs[j]) & (pos_out < offs[j] + totals[j])
                 lp = pos_out - offs[j]
                 cum = torch.cumsum(degs[j], 0)
@@ -309,7 +311,7 @@ def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
             valid = pos_out < torch.clamp(running, max=cap)
             for pj, (p_from, p_ealias, lo, hi, vlo, vhi, tidx,
                      has_pos) in enumerate(probes):
-                indptr, indices, pos = csrs[k][1][pj]
+                indptr, indices, pos, index = csrs[k][1][pj]
                 pfrm = cols[p_from]
                 n_rows = indptr.shape[0] - 1
                 local = (pfrm - lo).clamp(0, max(n_rows - 1, 0))
@@ -323,7 +325,7 @@ def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
                     found, ep = probe(indptr, indices,
                                       local.to(_I32).contiguous(),
                                       tgt.contiguous(),
-                                      pos if has_pos else None)
+                                      pos if has_pos else None, index)
                 else:                   # a keyed type with no vertices
                     found = torch.zeros(cap, dtype=torch.bool, device=dev)
                     ep = torch.zeros(cap, dtype=_I32, device=dev)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: each against its plain version; the
-LM and Wide & Deep on cuda against the CPU; fused graph chains (K1 probes
-inside) on cuda against the CPU.  Every test here is marked ``gpu``
+"""The port's CUDA kernels on the card: each against its plain version (K1's
+two routes on CSRs where its walk is likely to go wrong); the LM and Wide
+& Deep on cuda against the CPU; fused graph chains (K1 probes inside) on
+cuda against the CPU.  Every test here is marked ``gpu``
 and skips itself without a card.  The file imports neither jax nor the
 reference package, so it runs on a machine that has only PyTorch:
 
@@ -23,6 +24,12 @@ from repro_torch.kernels.flash_attention.ops import route as fa_route
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+from repro_torch.kernels.wcoj_intersect import ops as wcoj_ops
+from repro_torch.kernels.wcoj_intersect.ops import (build_search_index,
+                                                    wcoj_intersect)
+from repro_torch.kernels.wcoj_intersect.ops import route as wcoj_route
+from repro_torch.kernels.wcoj_intersect.ref import wcoj_intersect_ref
+from _wcoj_cases import trouble_cases
 
 CONFIGS = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "qwen2_5_32b",
            "phi3_medium_14b", "gemma2_27b"]
@@ -561,12 +568,16 @@ def test_fused_chains_on_the_card_match_the_cpu(card, name, text, params):
     gc.execute(oc, params=params)                        # measuring runs
     gh.execute(oh, params=params)
     before = kernels.LAUNCHES.get("wcoj_intersect", 0)
+    before_fence = kernels.LAUNCHES.get("wcoj_intersect.fence", 0)
     fused, st = gc.execute(oc, params=params)
     torch.cuda.synchronize()
     assert st.kernels.get("dispatch:fused_chain", 0) >= 1, st.kernels
     probes = st.kernels.get("probe:fused_chain", 0)
     assert kernels.LAUNCHES.get("wcoj_intersect", 0) - before == \
         probes + st.kernels.get("dispatch:intersect", 0)
+    # every probe of the path walks its CSR's search index
+    assert kernels.LAUNCHES.get("wcoj_intersect.fence", 0) - before_fence \
+        == kernels.LAUNCHES.get("wcoj_intersect", 0) - before
     if name == "triangle":
         assert probes >= 1
     loop, _ = gc.execute(oc, params=params, chain_dispatch=False)
@@ -578,3 +589,145 @@ def test_fused_chains_on_the_card_match_the_cpu(card, name, text, params):
         for k in fused.cols:
             np.testing.assert_array_equal(np.asarray(fused.cols[k]),
                                           np.asarray(other.cols[k]))
+
+
+# ------------------------------------------------------------ K1 WCOJ probe
+
+def _probe_args(card, indptr, indices, rows, targets, pos_map=None):
+    t = [torch.as_tensor(np.asarray(a, dtype=np.int32)).to(card)
+         for a in (indptr, indices, rows, targets)]
+    if pos_map is not None:
+        pos_map = torch.as_tensor(np.asarray(pos_map, np.int32)).to(card)
+    return (*t, pos_map)
+
+
+def _check_probe(args, index, want_route):
+    """One launch on ``want_route`` (both counts move by one, the other
+    route's not), equal to the plain version bit for bit."""
+    assert wcoj_route(args[1], index) == want_route
+    before = dict(kernels.LAUNCHES)
+    got = wcoj_intersect(*args, index)
+    torch.cuda.synchronize()
+    for key in ("wcoj_intersect", f"wcoj_intersect.{want_route}"):
+        assert kernels.LAUNCHES.get(key, 0) == before.get(key, 0) + 1, key
+    other = "search" if want_route == "fence" else "fence"
+    assert kernels.LAUNCHES.get(f"wcoj_intersect.{other}", 0) == \
+        before.get(f"wcoj_intersect.{other}", 0)
+    want = wcoj_intersect_ref(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fence", "search"])
+@pytest.mark.parametrize("with_pos", [False, True])
+@pytest.mark.parametrize("name", sorted(trouble_cases()))
+def test_wcoj_routes_match_plain_version(card, name, with_pos, which):
+    """Both routes equal the plain version where the fence walk is likely
+    to go wrong (``tests/_wcoj_cases.py``), with and without a pos map."""
+    indptr, indices, rows, tgt = trouble_cases()[name]
+    pos = (np.random.default_rng(1).permutation(indices.shape[0])
+           if with_pos else None)
+    args = _probe_args(card, indptr, indices, rows, tgt, pos)
+    index = build_search_index(args[1]) if which == "fence" else None
+    found, _ = _check_probe(args, index, which)
+    assert found.any() and not found.all()
+
+
+@pytest.mark.gpu
+def test_wcoj_fence_on_a_180000_degree_row(card):
+    """A hub of the synthetic smoke CSR's largest degree (six index levels
+    below its start) among rows of every small degree."""
+    rng = np.random.default_rng(2)
+    deg = rng.integers(0, 12, 400)
+    deg[123] = 180_000
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    indices = np.concatenate([np.sort(rng.choice(10 ** 7, d, replace=False))
+                              for d in deg])
+    rows = np.where(rng.random(1 << 16) < 0.5, 123,
+                    rng.integers(0, 400, 1 << 16))
+    slot = indptr[rows] + (rng.random(1 << 16) * deg[rows]).astype(np.int64)
+    tgt = np.where((rng.random(1 << 16) < 0.5) & (deg[rows] > 0),
+                   indices[np.minimum(slot, indices.shape[0] - 1)],
+                   rng.integers(0, 10 ** 7, 1 << 16))
+    pos = rng.permutation(indices.shape[0])
+    args = _probe_args(card, indptr, indices, rows, tgt, pos)
+    for index, which in ((build_search_index(args[1]), "fence"),
+                         (None, "search")):
+        found, _ = _check_probe(args, index, which)
+    assert found.any() and not found.all()
+
+
+@pytest.mark.gpu
+def test_wcoj_fence_on_a_csr_past_2_to_the_26(card):
+    """2^26 + 5 keys over 2^20 rows of random degree, sorted per row on
+    the card: node and level addresses past 2^26 slots."""
+    g = torch.Generator(card).manual_seed(3)
+    nnz, n_rows, n = (1 << 26) + 5, 1 << 20, 1 << 20
+    cuts = torch.randint(0, nnz, (n_rows - 1,), generator=g,
+                         device=card).sort().values
+    indptr = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), nnz)])
+    row = torch.searchsorted(indptr[1:], torch.arange(nnz, device=card),
+                             right=True)
+    key = torch.randint(0, 1 << 30, (nnz,), generator=g, device=card)
+    indices = ((row << 31) | key).sort().values & ((1 << 31) - 1)
+    del row, key
+    rows = torch.randint(0, n_rows, (n,), generator=g, device=card)
+    deg = indptr[rows + 1] - indptr[rows]
+    slot = indptr[rows] + (torch.rand(n, generator=g, device=card)
+                           * deg).long()
+    tgt = torch.where(torch.rand(n, generator=g, device=card) < 0.5,
+                      indices[slot.clamp(max=nnz - 1)],
+                      torch.randint(0, 1 << 30, (n,), generator=g,
+                                    device=card))
+    i32 = torch.int32
+    args = (indptr.to(i32), indices.to(i32), rows.to(i32), tgt.to(i32), None)
+    index = build_search_index(args[1])
+    assert index.shape[0] > (1 << 23)
+    found, _ = _check_probe(args, index, "fence")
+    assert found.any() and not found.all()
+
+
+@pytest.mark.gpu
+def test_wcoj_route_counts(card):
+    """One count under ``wcoj_intersect`` and one under the route per
+    call: 3 fence calls and 2 search calls."""
+    indptr, indices, rows, tgt = trouble_cases()["power_degrees"]
+    args = _probe_args(card, indptr, indices, rows, tgt)
+    index = build_search_index(args[1])
+    kernels.reset_launches()
+    for _ in range(3):
+        wcoj_intersect(*args, index)
+    for _ in range(2):
+        wcoj_intersect(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"wcoj_intersect": 5,
+                                "wcoj_intersect.fence": 3,
+                                "wcoj_intersect.search": 2}
+
+
+@pytest.mark.gpu
+def test_wcoj_misaligned_indices_take_search_never_the_plain_version(
+        card, monkeypatch):
+    """A CUDA tensor reaches a kernel: with the plain version made to
+    raise, an indices view 4 bytes past a sector boundary still launches
+    the search kernel, though an index is given."""
+    indptr, indices, rows, tgt = trouble_cases()["shared_nodes"]
+    args = _probe_args(card, indptr, indices, rows, tgt)
+    index = build_search_index(args[1])
+    buf = torch.empty(indices.shape[0] + 1, dtype=torch.int32, device=card)
+    shifted = buf[1:]
+    shifted.copy_(args[1])
+    want = wcoj_intersect_ref(*args)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(wcoj_ops, "wcoj_intersect_ref", refuse)
+    assert wcoj_route(shifted, index) == "search"
+    before = kernels.LAUNCHES.get("wcoj_intersect.search", 0)
+    got = wcoj_intersect(args[0], shifted, *args[2:], index)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wcoj_intersect.search"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
