@@ -31,7 +31,43 @@ Phases, each printing one JSON line:
              ``device="cuda"`` and ``device="cpu"`` (the plain versions),
              and the fused chains on cuda, the per-hop loop on cuda and the
              fused chains on the cpu give identical rows;
-7. serve   — the serving path: OLMoE-1B-7B at full width and depth in bf16
+7. check   — at sf=1 again, a mutable store after one update script (the
+             stream of phase 8, scaled down): the 25 queries and the
+             stream's reads give the same plans and rows on cuda and cpu,
+             over the delta overlay and after compaction;
+8. mutate  — graph serving under writes: phase 4's sf=100 store wrapped in
+             ``MutableGraphStore``, ``GOpt`` on cuda and
+             ``gopt.serve(overlap=True)`` answering 16 rounds of an
+             interleaved stream through ``submit_update`` / ``submit``:
+             32,768 edge inserts a round (40% KNOWS, 30% LIKES, 20%
+             HASMEMBER, 10% the edges of new COMMENTs), 1,024 deletes of
+             base KNOWS edges, 256 PERSON inserts (1,024 PERSON deletes in
+             the last round), and 512 reads over ``MUTATE_QUERIES`` with
+             Zipf ``$pid``s; a sample of each round's reads equals the
+             port's ``numpy`` spec on a deep copy of the store taken at
+             their admission; then ``srv.compact()`` and one more read
+             round, equal to the rows before compaction and to the numpy
+             spec.  Gates: every request done, no retry, no degradation,
+             no host rung on the server, no wave on rung 1 or 2, no
+             mid-plan device->host copy, K1
+             launched (all on ``fence``) on the insert and tombstone
+             views, chains declining on the delta and fused on untouched
+             triples, device memory back after compaction;
+9. kernel  — the probe on the insert-view and the tombstone-view probes
+             with the most probes captured in phase 8 (``DeltaAdj`` views,
+             indices zero-padded to a power of two), as in phase 3;
+10. chaos  — the compacted store served through four fault-injecting
+             wrappers of the cuda spec: transient K1 faults, a poison
+             binding and a latency spike over a fresh write burst; three
+             fused-chain faults that walk the breaker to the per-hop loop
+             and back; a permanent K1 fault on one plan, which serves from
+             rung 2 (the ``numpy`` spec, asked for with ``fallback_spec``)
+             — every successful read equal to a fault-free run, the
+             counters and fault ledgers equal to the injected schedule;
+             and the same permanent fault on a server left at its
+             default, which has no host rung on the card and fails the
+             request;
+11. serve  — the serving path: OLMoE-1B-7B at full width and depth in bf16
              (random weights from a seeded generator on the card),
              ``ServeEngine`` with 8 slots of 4096 positions answering 16
              requests (prompts of 128-2048 tokens, 64 new tokens each);
@@ -39,7 +75,7 @@ Phases, each printing one JSON line:
              kernel's tensor-core route (``tc``), every decode attention
              through its split route (``split``), and every expert product
              through the grouped-matmul kernel's tensor-core route;
-8. kernel  — each of those two kernels on calls captured in phase 7 (the
+12. kernel — each of those two kernels on calls captured in phase 11 (the
              longest prompt's prefill and one decode tick for attention;
              that prefill's and that tick's w1 and w2 products for the
              grouped matmul), against its plain version within the
@@ -53,10 +89,10 @@ Phases, each printing one JSON line:
              the bound, attention also with a cold L2; then the scalar
              routes on fp32 casts: attention's ``rows`` on the prefill,
              the grouped matmul's ``simt`` on the decode w1 product;
-9. check   — OLMoE at full width but 2 layers, in float32 with TF32 off:
+13. check  — OLMoE at full width but 2 layers, in float32 with TF32 off:
              a 256-token prefill and 4 teacher-forced decode steps give the
              same logits on ``device="cuda"`` and ``device="cpu"``;
-10. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
+14. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
              13.7 GB embedding table; random fp32 weights from a seeded
              generator on the card) serving the reference's three shapes:
              ``serve_p99`` (batch 512) 50 times, ``serve_bulk`` (batch
@@ -68,7 +104,7 @@ Phases, each printing one JSON line:
              on the host and copied to the card outside the timed window
              (``recsys_copy``); then one more forward of each shape under
              ``torch.profiler`` (no ``torch.cat`` kernel may appear);
-11. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
+15. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
              ``serve_bulk`` lookups, and on ``serve_bulk`` written through
              ``out`` into a buffer of the deep tower's padded shape (the
              padding columns untouched), against its plain version (1e-4,
@@ -77,7 +113,7 @@ Phases, each printing one JSON line:
              call, with one ``torch.nn.functional.embedding_bag`` call as
              the yardstick; then ``serve_p99`` on the ``warp`` route,
              through a view of the same table one element past its base;
-12. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
+16. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
@@ -135,6 +171,22 @@ BAG_TOL = 1e-4
 PROBE_LIMIT_MS = {"synthetic_zipf": 1.1}
 PROBE_SEARCH_RATIO = {"glogue_most_rows": 1.05, "glogue_most_steps": 1.0}
 RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5
+# the update stream at sf=100: a round's writes (edge inserts, deletes of
+# base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
+# only), its reads, the chunks they interleave in, the reads a round held
+# to the host spec, and the slack on device memory after compaction
+MUTATE_ROUNDS = 16
+MUTATE_SIZES = {"edge_inserts": 32_768, "edge_deletes": 1_024,
+                "persons": 256, "vertex_deletes": 1_024, "reads": 512}
+MUTATE_CHUNKS = 8
+MUTATE_SAMPLE = 32
+MUTATE_MEMORY_SLACK = 0.10
+# the same script, scaled down, for the cuda-vs-cpu check at sf=1
+CHECK_MUTATE_SIZES = {"edge_inserts": 2_048, "edge_deletes": 128,
+                      "persons": 32, "vertex_deletes": 64, "reads": 0}
+# chaos: KNOWS inserts before the faulted reads, and the latency spike
+CHAOS_WRITES = 64
+CHAOS_LATENCY_S = 0.2
 
 # The 25 benchmark queries (the paper's Appendix A on the LDBC schema
 # subset, plus LDBC interactive-complex-like queries): name, text, params.
@@ -233,6 +285,34 @@ QUERIES = [
              "(t)-[:HASTYPE]->(tc:TAGCLASS) WHERE p.id = $pid "
              "RETURN friend, count(comment) AS cnt "
              "ORDER BY cnt DESC LIMIT 20", {"pid": 5}),
+]
+
+
+# The update stream's reads, each with ``$pid`` (a ``PERSON.id``).  ic3p
+# and ic11p are ic3 and ic11 of QUERIES returning ``friend.id`` (and
+# ``org.id``) with a full ORDER BY, so rows compare across compaction,
+# which renumbers vertices; QUERIES (the benchmark set) has no $pid query
+# cyclic over KNOWS, whose probes hit the insert and tombstone views, nor
+# a $pid chain off the written triples, which stays fused while the
+# overlay grows.
+MUTATE_QUERIES = [
+    ("ic11p", "MATCH (p:PERSON)-[:KNOWS]-(friend:PERSON), "
+              "(friend)-[:WORKAT]->(org:ORGANISATION), "
+              "(org)-[:ISLOCATEDIN]->(c:COUNTRY) WHERE p.id = $pid "
+              "RETURN friend.id AS fid, org.id AS oid, count(c) AS n "
+              "ORDER BY n, fid, oid LIMIT 10"),
+    ("ic3p", "MATCH (p:PERSON)-[:KNOWS]-(friend:PERSON), "
+             "(friend)<-[:HASCREATOR]-(m:POST|COMMENT), "
+             "(m)-[:HASTAG]->(t:TAG) WHERE p.id = $pid "
+             "RETURN friend.id AS fid, count(m) AS cnt "
+             "ORDER BY cnt DESC, fid LIMIT 20"),
+    ("knows_triangle", "MATCH (p:PERSON)-[:KNOWS]->(a:PERSON), "
+                       "(p)-[:KNOWS]->(b:PERSON), (a)-[:KNOWS]->(b) "
+                       "WHERE p.id = $pid RETURN count(a) AS n"),
+    ("creator_tags", "MATCH (p:PERSON)<-[:HASCREATOR]-(m:POST), "
+                     "(m)-[:HASTAG]->(t:TAG), (t)-[:HASTYPE]->(c:TAGCLASS) "
+                     "WHERE p.id = $pid RETURN c.id AS cid, count(m) AS n "
+                     "ORDER BY cid"),
 ]
 
 
@@ -393,7 +473,9 @@ def probe_phase(label: str, indptr, indices, rows, targets, pos_map, index,
     deg = (indptr[1:] - indptr[:-1]).to(torch.int64)
     pdeg = deg[rows.to(torch.int64)]
     steps = search_steps(indptr, rows)
-    nnz = int(indices.shape[0])
+    # a delta view's indices run past its last row's end (zeros to a
+    # power of two): count the keys the rows hold
+    nnz = int(indptr[-1])
     # compulsory traffic, each input read at most once: rows and targets;
     # two indptr words and one indices word per probe, but no more than
     # those arrays hold; one pos_map word per hit, likewise capped; found
@@ -421,12 +503,13 @@ def probe_phase(label: str, indptr, indices, rows, targets, pos_map, index,
     # precomputed per CSR (not part of the port)
     edge_row = torch.repeat_interleave(
         torch.arange(deg.shape[0], device=deg.device), deg)
-    keys = (edge_row << 32) | indices.to(torch.int64)
+    keys = (edge_row << 32) | indices[:nnz].to(torch.int64)
     q = (rows.to(torch.int64) << 32) + targets.to(torch.int64)
     library_ms = cuda_ms(lambda: torch.searchsorted(keys, q), reps,
                          batch=PROBE_BATCH, queued=True)
     return {"phase": "kernel", "name": "wcoj_intersect", "input": label,
             "route": which, "rows": R, "nnz": nnz,
+            "nnz_cap": int(indices.shape[0]),
             "csr_rows": int(deg.shape[0]), "max_degree": int(deg.max()),
             "mean_probe_degree": float(pdeg.to(torch.float64).mean()),
             "hits": hits, "equal": True, "max_abs_err": err,
@@ -574,11 +657,11 @@ def glogue_probes(ops, calls: dict) -> dict:
     return probes
 
 
-def main_path(sf: float) -> tuple[dict, dict]:
+def main_path(sf: float) -> tuple[dict, dict, object]:
     """Store -> GOpt on cuda -> the 25 queries twice.  Returns the phase
-    record and the inputs of two GLogue intersect calls (with their CSR's
+    record, the inputs of two GLogue intersect calls (with their CSR's
     search index): the one with the most probes and the one with the most
-    search steps."""
+    search steps, and the store (the update stream writes to it)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.gopt import GOpt
@@ -638,7 +721,7 @@ def main_path(sf: float) -> tuple[dict, dict]:
            "warm_ms_total_ok": sum(q["ms"] for q in ok),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "queries": queries}
-    return rec, glogue_probes(ops, calls)
+    return rec, glogue_probes(ops, calls), store
 
 
 def _rows_equal(name: str, what: str, a, b) -> None:
@@ -688,6 +771,653 @@ def cross_check(sf: float) -> dict:
     return {"phase": "check", "sf": sf, "queries": len(QUERIES),
             "result_rows": rows, "glogue_freqs": len(gc.glogue.freq),
             "fused_chain_dispatches": fused, "identical": True,
+            "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------------ graph serving under writes
+
+def mutate_writes(ms, rng, state: dict, sizes: dict,
+                  last: bool) -> list[tuple]:
+    """One round of the update stream, in queue order: ``PERSON`` inserts,
+    new ``COMMENT``s, then the edge inserts and the deletes of base
+    ``KNOWS`` edges shuffled together, then (the last round only) deletes
+    of base ``PERSON``s.  The edge inserts are 40% ``KNOWS``, 30%
+    ``LIKES`` (to a ``POST``), 20% ``HASMEMBER`` and 10% the two edges of
+    each new comment (``REPLYOF`` a post, ``HASCREATOR`` a person);
+    targets of KNOWS, LIKES and REPLYOF are drawn by the store generator's
+    Zipf sampler.  ``state`` carries the stream across rounds: the live
+    person ids (``"persons"``, grown by the round's inserts) and the
+    deleted KNOWS pairs (``"deleted"``), which no insert with properties
+    may aim at (that would resurrect the base edge).  Ids of new vertices
+    follow from ``ms.id_space``: the queue applies the inserts in
+    order."""
+    import numpy as np
+    from repro_torch.graphdb.ldbc import _zipf_targets
+    base = ms.base
+    plo, phi = base.type_range("PERSON")
+    olo, ohi = base.type_range("POST")
+    flo, fhi = base.type_range("FORUM")
+    n_ins = sizes["edge_inserts"]
+    n_com = n_ins // 20
+    n_like = n_ins * 3 // 10
+    n_mem = n_ins // 5
+    n_knows = n_ins - n_like - n_mem - 2 * n_com
+    gid = ms.id_space
+    stamp = 1_400_000_000 + 1_000_000 * len(ms.compactions)
+    writes = []
+    new_p = list(range(gid, gid + sizes["persons"]))
+    for i, g in enumerate(new_p):
+        writes.append(("insert_vertex", ("PERSON", {
+            "id": 10_000_000 + g, "creationDate": stamp + i})))
+    comments = list(range(gid + len(new_p), gid + len(new_p) + n_com))
+    for i, g in enumerate(comments):
+        writes.append(("insert_vertex", ("COMMENT", {
+            "id": 20_000_000 + g, "length": int(rng.integers(1, 2000)),
+            "creationDate": stamp + i})))
+    state["persons"].extend(new_p)
+    pa = np.asarray(state["persons"], dtype=np.int64)
+    knows = ("PERSON", "KNOWS", "PERSON")
+    csr = next(c for t, c in base.out_csr.items()
+               if (t.src, t.label, t.dst) == knows)
+    pos = rng.integers(0, csr.nnz, sizes["edge_deletes"])
+    rows = np.searchsorted(csr.indptr, pos, side="right") - 1
+    deletes = [(plo + r, int(csr.indices[p]))
+               for r, p in zip(rows.tolist(), pos.tolist())]
+    state["deleted"].update(deletes)
+    edges = [("delete_edge", (knows, s, d)) for s, d in deletes]
+    src = pa[rng.integers(0, pa.shape[0], n_knows)]
+    dst = plo + _zipf_targets(rng, n_knows, phi - plo)
+    for i, (s, d) in enumerate(zip(src.tolist(), dst.tolist())):
+        while (s, d) in state["deleted"]:
+            s = int(pa[rng.integers(0, pa.shape[0])])
+        edges.append(("insert_edge", (knows, s, d,
+                                      {"creationDate": stamp + i})))
+    src = pa[rng.integers(0, pa.shape[0], n_like)]
+    dst = olo + _zipf_targets(rng, n_like, ohi - olo)
+    for s, d in zip(src.tolist(), dst.tolist()):
+        edges.append(("insert_edge", (("PERSON", "LIKES", "POST"), s, d,
+                                      None)))
+    src = rng.integers(flo, fhi, n_mem)
+    dst = pa[rng.integers(0, pa.shape[0], n_mem)]
+    for s, d in zip(src.tolist(), dst.tolist()):
+        edges.append(("insert_edge", (("FORUM", "HASMEMBER", "PERSON"), s, d,
+                                      None)))
+    posts = olo + _zipf_targets(rng, n_com, ohi - olo)
+    authors = pa[rng.integers(0, pa.shape[0], n_com)]
+    for c, p, a in zip(comments, posts.tolist(), authors.tolist()):
+        edges.append(("insert_edge", (("COMMENT", "REPLYOF", "POST"), c, p,
+                                      None)))
+        edges.append(("insert_edge", (("COMMENT", "HASCREATOR", "PERSON"), c,
+                                      a, None)))
+    order = rng.permutation(len(edges))
+    writes.extend(edges[i] for i in order.tolist())
+    if last:
+        dead = plo + rng.choice(phi - plo, sizes["vertex_deletes"],
+                                replace=False)
+        writes.extend(("delete_vertex", (g,)) for g in dead.tolist())
+    return writes
+
+
+def _cache_bytes(ops) -> int:
+    """Device bytes the operator set caches: CSR twins with their K1
+    indices, overlay columns, property columns."""
+    import torch
+    seen, total = set(), 0
+
+    def add(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            if x.data_ptr() not in seen:
+                seen.add(x.data_ptr())
+                total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                add(y)
+
+    for cache in (ops._dev, ops._cols):
+        for ent in list(cache.values()):
+            add(ent[1])
+    for ent in list(ops._props.values()):
+        add(ent)
+    return total
+
+
+def capture_views(ops, base_ids: set) -> dict:
+    """Wraps ``ops.intersect`` for the update stream: counts the probes of
+    delta views (any CSR outside ``base_ids``), K1's launches on them (the
+    difference in ``kernels.LAUNCHES`` across each view probe) and the
+    search indexes built for them at their first probe, and keeps the
+    probe with the most probes of an insert view (one with edge positions)
+    and of a tombstone view (inputs stay on the card).
+    ``del ops.intersect`` ends it."""
+    from repro_torch import kernels
+    rec = {"launches": 0, "probes": 0, "index_builds": 0, "insert": None,
+           "tombstone": None}
+    real_intersect = ops.intersect
+
+    def capture(csr, rows_local, targets):
+        n = int(rows_local.shape[0])
+        if not n or id(csr) in base_ids:
+            return real_intersect(csr, rows_local, targets)
+        rec["probes"] += n
+        ent = ops._cached(ops._dev, csr)
+        if ent is None or ent[3] is None:
+            rec["index_builds"] += 1
+        kind = "insert" if csr.pos is not None else "tombstone"
+        if rec[kind] is None or n > rec[kind][0]:
+            rec[kind] = (n, csr, rows_local, targets)
+        before = kernels.LAUNCHES.get("wcoj_intersect", 0)
+        out = real_intersect(csr, rows_local, targets)
+        rec["launches"] += kernels.LAUNCHES.get("wcoj_intersect", 0) - before
+        return out
+
+    ops.intersect = capture
+    return rec
+
+
+def host_rows(oracle, req, cache: dict):
+    """The port's ``numpy`` spec on ``oracle`` (a deep copy of the store),
+    over the physical plan the request ran, with its binding; memoized
+    per (plan, binding)."""
+    from repro_torch.graphdb.engine import Engine
+    opt = req.prepared.opt
+    key = (req.prepared.cache_key, tuple(sorted(req.params.items())))
+    if key not in cache:
+        eng = Engine(oracle, backend="numpy",
+                     fuse_expand=opt.logical.hints.get("fuse_expand", True))
+        cache[key] = eng.run(opt.logical, opt.physical,
+                             params=req.params)[0]
+    return cache[key]
+
+
+def _read_stats(reqs: list, stats: dict) -> None:
+    """Folds the requests' own execution ledgers into ``stats`` (requests
+    deduplicated in a wave share one ``ExecStats``)."""
+    from repro_torch.core.physical_spec import TransferStats
+    seen = set()
+    for r in reqs:
+        st = r.stats
+        if id(st) in seen:
+            continue
+        seen.add(id(st))
+        stats["mid_plan_d2h"] += TransferStats.mid_plan_d2h(st.transfers)
+        for k, v in (st.fallbacks or {}).items():
+            stats["fallbacks"][k] = stats["fallbacks"].get(k, 0) + v
+        stats["fused"] += (st.kernels or {}).get("dispatch:fused_chain", 0)
+
+
+def mutate_path(store, device, sizes: dict, rounds: int, sf: float,
+                seed: int = SEED) -> tuple[dict, object, dict]:
+    """The graph-serving path under writes (module docstring, phase
+    ``mutate``).  Returns the phase record, the GOpt over the compacted
+    store (the chaos phase serves it) and the kernel inputs of the
+    captured insert-view and tombstone-view probes."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.graphdb.delta import MutableGraphStore
+    from repro_torch.graphdb.ldbc import _zipf_targets
+    from repro_torch.graphdb.serve import _WRITE_KEY
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(seed)
+    ms = MutableGraphStore(store)
+    del store
+    n_person = ms.base.v_count["PERSON"]
+    t0 = time.perf_counter()
+    gopt = GOpt(ms, device=None if cuda else device.type)
+    gopt_s = time.perf_counter() - t0
+    ops = gopt.spec.operators(ms)
+    per_round = (sizes["persons"] + sizes["edge_inserts"]
+                 + sizes["edge_inserts"] // 20 + sizes["edge_deletes"]
+                 + sizes["vertex_deletes"] + sizes["reads"])
+    srv = gopt.serve(overlap=True, max_pending=per_round)
+    if cuda:
+        require(srv.fallback_spec is None,
+                f"a server on the card has a host rung: "
+                f"{srv.fallback_spec!r}")
+    state = {"persons": list(range(*ms.base.type_range("PERSON"))),
+             "deleted": set()}
+    reads = {"latency_s": [], "mid_plan_d2h": 0, "fallbacks": {},
+             "fused": 0, "done": 0, "checked": 0, "failed": 0}
+    writes_total = writes_done = 0
+    view_ms, copy_s, oracle_s, stream_s = [], 0.0, 0.0, 0.0
+    fused_rounds = []
+    sync()
+    mem_before = torch.cuda.memory_allocated() if cuda else 0
+    cache_before = _cache_bytes(ops)
+    base_ids = {id(c) for c in list(ms.base.out_csr.values())
+                + list(ms.base.in_csr.values())}
+    views = capture_views(ops, base_ids)
+    kernels.reset_launches()
+
+    def read_round(bindings):
+        return [srv.submit(MUTATE_QUERIES[q][1], {"pid": int(p)})
+                for q, p in bindings]
+
+    for rnd in range(rounds):
+        last = rnd == rounds - 1
+        t0 = time.perf_counter()
+        gopt.snapshot()                     # builds the touched views
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        oracle = copy.deepcopy(ms)
+        copy_s += time.perf_counter() - t0
+        writes = mutate_writes(ms, rng, state, sizes, last)
+        qs = rng.integers(0, len(MUTATE_QUERIES), sizes["reads"])
+        pids = _zipf_targets(rng, sizes["reads"], n_person)
+        wchunks = np.array_split(np.arange(len(writes)), MUTATE_CHUNKS)
+        rchunks = np.array_split(np.arange(sizes["reads"]), MUTATE_CHUNKS)
+        t0 = time.perf_counter()
+        wreqs, rreqs = [], []
+        for wc, rc in zip(wchunks, rchunks):
+            for i in wc.tolist():
+                name, args = writes[i]
+                wreqs.append(srv.submit_update(name, *args))
+            rreqs.extend(read_round(zip(qs[rc].tolist(), pids[rc].tolist())))
+        srv.drain()
+        sync()
+        stream_s += time.perf_counter() - t0
+        writes_total += len(wreqs)
+        writes_done += sum(r.status == "done" for r in wreqs)
+        bad = [r.error for r in wreqs if r.status != "done"]
+        require(not bad, f"mutate round {rnd}: {len(bad)} writes did not "
+                         f"finish, the first: {bad[:1]}")
+        require(all(r.status == "done" for r in rreqs),
+                f"mutate round {rnd}: a read did not finish")
+        require(all(r.snap_version == oracle.version for r in rreqs),
+                f"mutate round {rnd}: a read pinned another version than "
+                f"its admission's")
+        before = reads["fused"]
+        _read_stats(rreqs, reads)
+        fused_rounds.append(reads["fused"] - before)
+        reads["latency_s"].extend(r.latency_s for r in rreqs)
+        reads["done"] += len(rreqs)
+        t0 = time.perf_counter()
+        cache = {}
+        for i in rng.choice(len(rreqs), MUTATE_SAMPLE, replace=False):
+            r = rreqs[int(i)]
+            _rows_equal(r.prepared.source[:40], f"round {rnd} vs the "
+                        f"numpy spec on its admission's copy", r.table,
+                        host_rows(oracle, r, cache))
+            reads["checked"] += 1
+        oracle_s += time.perf_counter() - t0
+        del oracle, cache, wreqs, rreqs, writes
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    del ops.intersect
+    k1 = launches.get("wcoj_intersect", 0)
+    if cuda:                # the plain version on the CPU counts nothing
+        require(k1 > 0, "the update stream launched no wcoj_intersect "
+                        "kernel")
+        require(launches.get("wcoj_intersect.fence", 0) == k1,
+                f"{launches.get('wcoj_intersect.fence', 0)} of {k1} "
+                f"wcoj_intersect launches on the fence route")
+        require(views["launches"] > 0, "no wcoj_intersect launch on a "
+                                       "delta view")
+    require(views["insert"] is not None and views["tombstone"] is not None,
+            "no probe of an insert view or of a tombstone view")
+    require(reads["mid_plan_d2h"] == 0,
+            f"{reads['mid_plan_d2h']} mid-plan device->host copies")
+    require(reads["fallbacks"].get("chain_delta", 0) > 0,
+            "no fused chain declined on a delta")
+    require(sum(fused_rounds[:-1]) >= 1,
+            f"no fused chain dispatched in rounds 1-{rounds - 1}")
+    s = srv.stats.summary()
+    # each read wave's own execution time, without the queueing behind the
+    # round's writes that the submit-then-drain loop adds to latency
+    wave_ms = sorted(1e3 * t for k, v in srv.stats.per_plan.items()
+                     if k != _WRITE_KEY for t in v["exec_s"])
+    require(s["failed"] == 0 and s["retries"] == 0
+            and s["breaker_trips"] == 0 and s["rung_waves"][1:] == [0, 0],
+            f"the fault-free stream degraded: failed={s['failed']} "
+            f"retries={s['retries']} trips={s['breaker_trips']} "
+            f"waves by rung={s['rung_waves']}")
+    require(s["completed"] == s["submitted"],
+            f"{s['completed']} of {s['submitted']} requests done")
+    n_vertices_live = ms.n_vertices
+    info = ms.delta_info()
+    # the same bindings before and after compaction
+    qs = rng.integers(0, len(MUTATE_QUERIES), sizes["reads"])
+    pids = _zipf_targets(rng, sizes["reads"], n_person)
+    bindings = list(zip(qs.tolist(), pids.tolist()))
+    pre = read_round(bindings)
+    srv.drain()
+    sync()
+    require(all(r.status == "done" for r in pre), "a pre-compaction read "
+                                                  "did not finish")
+    pre_rows = [(r.prepared.source, r.params, r.table) for r in pre]
+    del pre
+    epoch0 = gopt.plan_cache_info()["epoch"]
+    t0 = time.perf_counter()
+    event = srv.compact()
+    sync()
+    compact_s = time.perf_counter() - t0
+    require(gopt.plan_cache_info()["epoch"] > epoch0,
+            "compaction left the stats epoch")
+    require(event["repinned_plans"] == len(MUTATE_QUERIES),
+            f"{event['repinned_plans']} hot plans re-pinned")
+    # (edges of deleted vertices leave at compaction; ``n_edges`` counted
+    # them until then)
+    require(ms.n_vertices == n_vertices_live,
+            "compaction changed the live vertex count")
+    post = read_round(bindings)
+    srv.drain()
+    sync()
+    require(all(r.status == "done" for r in post), "a post-compaction read "
+                                                   "did not finish")
+    t0 = time.perf_counter()
+    oracle, cache = copy.deepcopy(ms), {}
+    for r, (src, params, table) in zip(post, pre_rows):
+        require(r.prepared.source == src and r.params == params,
+                "post-compaction bindings differ")
+        _rows_equal(src[:40], "after compaction vs before", r.table, table)
+        _rows_equal(src[:40], "after compaction vs the numpy spec",
+                    r.table, host_rows(oracle, r, cache))
+        reads["checked"] += 1
+    oracle_s += time.perf_counter() - t0
+    _read_stats(post, reads)
+    post_rungs = srv.stats.summary()["rung_waves"]
+    require(post_rungs[1:] == [0, 0], f"waves by rung {post_rungs}")
+    require(reads["mid_plan_d2h"] == 0,
+            f"{reads['mid_plan_d2h']} mid-plan device->host copies")
+    del post, pre_rows, oracle, cache
+    srv.close()
+    probes = {}
+    for kind in ("insert", "tombstone"):
+        _, csr, rows, targets = views.pop(kind)
+        indptr, indices, pos, index = ops._csr_dev(csr, probe=True)
+        probes[f"mutate_{kind}_view"] = (
+            indptr, indices, ops._col(rows).to(torch.int32).contiguous(),
+            ops._col(targets).to(torch.int32).contiguous(), pos, index)
+    del csr, rows, targets, indptr, indices, pos, index, srv
+    gc.collect()
+    sync()
+    mem_after = torch.cuda.memory_allocated() if cuda else 0
+    cache_after = _cache_bytes(ops)
+    growth = max(0, cache_after - cache_before)
+    if cuda:
+        require(mem_after <= mem_before * (1 + MUTATE_MEMORY_SLACK) + growth,
+                f"device memory after compaction {mem_after} B > "
+                f"{1 + MUTATE_MEMORY_SLACK} x {mem_before} B + the base's "
+                f"growth {growth} B")
+    lat = sorted(reads["latency_s"])
+    rec = {"phase": "mutate", "sf": sf, "vertices": int(ms.n_vertices),
+           "edges": int(ms.n_edges),
+           "rounds": rounds, "gopt_s": gopt_s,
+           "writes": writes_total, "writes_done": writes_done,
+           "edge_inserts": sizes["edge_inserts"] * rounds,
+           "reads": reads["done"], "reads_checked": reads["checked"],
+           "stream_s": stream_s, "mutations_per_s": writes_total / stream_s,
+           "read_p50_ms": 1e3 * lat[len(lat) // 2],
+           "read_p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "read_wave_exec_ms": {
+               "p50": wave_ms[len(wave_ms) // 2],
+               "p99": wave_ms[min(len(wave_ms) - 1,
+                                  int(0.99 * len(wave_ms)))],
+               "waves": len(wave_ms)},
+           "snapshot_view_ms": {"mean": statistics.mean(view_ms),
+                                "max": max(view_ms)},
+           "oracle_copy_s": copy_s, "oracle_s": oracle_s,
+           "overlay_before_compaction": info,
+           "compaction": event, "compact_s": compact_s,
+           "serve": {k: s[k] for k in (
+               "submitted", "completed", "waves", "mean_wave_size",
+               "deduped", "writes", "failed", "retries", "breaker_trips",
+               "rung_waves", "fallbacks")},
+           "fused_chain_dispatches_by_round": fused_rounds,
+           "read_fallbacks": reads["fallbacks"],
+           "mid_plan_d2h": reads["mid_plan_d2h"],
+           "launches": launches,
+           "view_probe_launches": views["launches"],
+           "view_probes": views["probes"],
+           "view_index_builds": views["index_builds"],
+           "memory_allocated_before": mem_before,
+           "memory_allocated_after": mem_after,
+           "cache_bytes_before": cache_before,
+           "cache_bytes_after": cache_after}
+    return rec, gopt, probes
+
+
+def chaos_path(gopt, device, seed: int = SEED) -> dict:
+    """Fault injection on the card over the compacted store (module
+    docstring, phase ``chaos``): four servers over one GOpt, each with
+    its own ``faulty_spec(torch_spec(), FaultPlan(...))``."""
+    import numpy as np
+    import torch
+    from repro_torch.graphdb.faults import FaultPlan, FaultRule, faulty_spec
+    from repro_torch.graphdb.ldbc import _zipf_targets
+    from repro_torch.graphdb.serve import ServeQuarantined
+    from repro_torch.graphdb.torch_backend import torch_spec
+    cuda = device.type == "cuda"
+    spec = torch_spec(None if cuda else device.type)
+    ms = gopt.store
+    rng = np.random.default_rng(seed + 1)
+    n_person = ms.base.v_count["PERSON"]
+    poison, slow = n_person - 2, n_person - 3
+    tri = next(i for i, q in enumerate(MUTATE_QUERIES)
+               if q[0] == "knows_triangle")
+    chain = next(i for i, q in enumerate(MUTATE_QUERIES)
+                 if q[0] == "creator_tags")
+
+    def pids(n):
+        p = _zipf_targets(rng, 4 * n, n_person)
+        p = p[(p != poison) & (p != slow)]
+        return [int(x) for x in p[:n]]
+
+    clean = {}
+
+    def fault_free(q, pid):
+        if (q, pid) not in clean:
+            clean[(q, pid)] = gopt.run(MUTATE_QUERIES[q][1],
+                                       {"pid": pid})[0]
+        return clean[(q, pid)]
+
+    def check_rows(reqs, what):
+        for q, r in reqs:
+            if r.status == "done":
+                _rows_equal(MUTATE_QUERIES[q][0], what, r.table,
+                            fault_free(q, r.params["pid"]))
+
+    t_start = time.perf_counter()
+    # S1: writes, then reads under transient K1 faults, a poison binding
+    # and a latency spike.  The writes touch KNOWS, so chains over it
+    # decline and its probes cross the intersect boundary.
+    bind_poison = FaultRule(op="bind", kind="permanent", value=poison,
+                            count=None)
+    plan1 = FaultPlan([FaultRule(op="intersect", kind="transient", count=1),
+                       FaultRule(op="intersect", kind="transient", after=1,
+                                 count=1),
+                       bind_poison,
+                       FaultRule(op="bind", kind="latency", value=slow,
+                                 latency_s=CHAOS_LATENCY_S, count=1)],
+                      seed=seed)
+    fallback = FaultPlan([bind_poison], seed=seed)
+    s1 = gopt.serve(backend=faulty_spec(spec, plan1), overlap=True,
+                    fallback_spec=faulty_spec("numpy", fallback),
+                    quarantine_after=2, breaker_threshold=99)
+    plo, phi = ms.base.type_range("PERSON")
+    knows = ("PERSON", "KNOWS", "PERSON")
+    writes = [s1.submit_update("insert_edge", knows,
+                               int(rng.integers(plo, phi)),
+                               int(rng.integers(plo, phi)))
+              for _ in range(CHAOS_WRITES)]
+    s1.drain()
+    require(all(w.status == "done" for w in writes), "chaos: a write failed")
+    reqs = [(q, s1.submit(MUTATE_QUERIES[q][1], {"pid": p}))
+            for q in range(len(MUTATE_QUERIES)) for p in pids(16)]
+    s1.drain()
+    wave = pids(7) + [poison]
+    reqs += [(tri, s1.submit(MUTATE_QUERIES[tri][1], {"pid": p}))
+             for p in wave]
+    s1.drain()
+    first = reqs[-1][1]
+    again = s1.submit(MUTATE_QUERIES[tri][1], {"pid": poison})
+    s1.drain()
+    try:
+        s1.submit(MUTATE_QUERIES[tri][1], {"pid": poison})
+        quarantined = False
+    except ServeQuarantined:
+        quarantined = True
+    late = s1.submit(MUTATE_QUERIES[tri][1], {"pid": slow},
+                     deadline_s=time.perf_counter() + CHAOS_LATENCY_S / 4)
+    s1.drain()
+    reqs += [(q, s1.submit(MUTATE_QUERIES[q][1], {"pid": p}))
+             for q in range(len(MUTATE_QUERIES)) for p in pids(16)]
+    s1.drain()
+    s1.close()
+    terminal = {"done", "failed", "dropped", "cancelled"}
+    every = [r for _, r in reqs] + [again, late] + writes
+    require(all(r.status in terminal for r in every),
+            "chaos: a request without a terminal status")
+    require(first.status == "failed" and again.status == "failed"
+            and quarantined, "chaos: the poison binding was not failed and "
+                             "quarantined")
+    require(all(r.status == "done" for _, r in reqs if r is not first),
+            "chaos: a healthy request failed beside the poison")
+    require(late.status == "dropped", f"chaos: the slow request ended "
+                                      f"{late.status}")
+    check_rows(reqs, "chaos vs a fault-free run")
+    st1 = s1.stats.summary()
+    fired1 = dict(plan1._fired)
+    want1 = {"retries": 2, "failed": 2, "quarantined": 1, "bisections": 3,
+             "deadline_aborts": 1, "dropped": 1, "breaker_trips": 0}
+    require(all(st1[k] == v for k, v in want1.items()),
+            f"chaos: serve counters {({k: st1[k] for k in want1})}, "
+            f"expected {want1}")
+    # the poison fires at rungs 0 and 1 of each execution holding it: the
+    # wave of 8, its halves of 4 and 2, itself, then alone twice
+    want_fired = {0: 1, 1: 1, 2: 7, 3: 1}
+    require(fired1 == want_fired and fallback._fired == {0: 2},
+            f"chaos: fault ledger {fired1} / {fallback._fired}, expected "
+            f"{want_fired} / {{0: 2}}")
+    # S2: three fused-chain faults on single-request waves: the breaker
+    # steps down to the per-hop loop, probes back and recovers
+    plan2 = FaultPlan([FaultRule(op="chain", kind="permanent", count=3)],
+                      seed=seed)
+    s2 = gopt.serve(backend=faulty_spec(spec, plan2), overlap=True,
+                    probe_after=2)
+    reqs2 = []
+    for p in pids(14):
+        reqs2.append((chain, s2.submit(MUTATE_QUERIES[chain][1],
+                                       {"pid": p})))
+        s2.drain()
+    s2.close()
+    require(all(r.status == "done" for _, r in reqs2),
+            "chaos: a chain request failed")
+    check_rows(reqs2, "chaos breaker vs a fault-free run")
+    (b2,) = s2._breakers.values()
+    st2 = s2.stats.summary()
+    require(b2["trips"] == 1 and b2["probes"] == 3 and b2["recoveries"] == 1
+            and b2["level"] == 0 and plan2.fired == 3
+            and st2["rung_waves"][1] > 0 and st2["rung_waves"][2] == 0,
+            f"chaos: breaker {b2}, waves by rung {st2['rung_waves']}, "
+            f"{plan2.fired} chain faults")
+    # S3: every K1 probe of one plan fails for good: with the host rung
+    # asked for, it walks to rung 2, the host numpy spec, and stays there
+    plan3 = FaultPlan([FaultRule(op="intersect", kind="permanent",
+                                 count=None)], seed=seed)
+    s3 = gopt.serve(backend=faulty_spec(spec, plan3), overlap=True,
+                    fallback_spec="numpy")
+    reqs3 = []
+    for p in pids(6):
+        reqs3.append((tri, s3.submit(MUTATE_QUERIES[tri][1], {"pid": p})))
+        s3.drain()
+    s3.close()
+    require(all(r.status == "done" for _, r in reqs3),
+            "chaos: a request of the faulted plan failed")
+    check_rows(reqs3, "chaos numpy rung vs a fault-free run")
+    require(sum(r.table.nrows for _, r in reqs3) > 0,
+            "chaos: the faulted plan returned no row")
+    (b3,) = s3._breakers.values()
+    st3 = s3.stats.summary()
+    require(b3["level"] == 2 and b3["trips"] == 1
+            and st3["rung_waves"] == [0, 0, len(reqs3)],
+            f"chaos: breaker {b3}, waves by rung {st3['rung_waves']}")
+    # S4: the same fault on a server left at its default: on the card it
+    # has no host rung, so the request fails after the per-hop rung
+    plan4 = FaultPlan([FaultRule(op="intersect", kind="permanent",
+                                 count=None)], seed=seed)
+    s4 = gopt.serve(backend=faulty_spec(spec, plan4), overlap=True,
+                    chain_dispatch=False)
+    busiest = max(reqs3, key=lambda qr: qr[1].table.nrows)[1]
+    r4 = s4.submit(MUTATE_QUERIES[tri][1], dict(busiest.params))
+    s4.drain()
+    s4.close()
+    st4 = s4.stats.summary()
+    if cuda:
+        require(s4.fallback_spec is None and r4.status == "failed"
+                and st4["rung_waves"] == [1, 0, 0] and plan4.fired == 2,
+                f"chaos: the default server on the card ended "
+                f"{r4.status} with waves by rung {st4['rung_waves']} and "
+                f"{plan4.fired} faults")
+    if cuda:
+        torch.cuda.synchronize()
+    return {"phase": "chaos", "seconds": time.perf_counter() - t_start,
+            "reads": len(reqs) + len(reqs2) + len(reqs3) + 2,
+            "writes": len(writes),
+            "mixed": {"serve": {k: st1[k] for k in (
+                "submitted", "completed", "failed", "retries", "bisections",
+                "quarantined", "dropped", "deadline_aborts", "rung_waves")},
+                "fired": fired1, "fallback_fired": dict(fallback._fired)},
+            "breaker": {"state": b2, "rung_waves": st2["rung_waves"],
+                        "fired": plan2.fired},
+            "permanent_k1": {"state": b3, "rung_waves": st3["rung_waves"],
+                             "fired": plan3.fired},
+            "no_host_rung": {"status": r4.status,
+                             "rung_waves": st4["rung_waves"],
+                             "fired": plan4.fired},
+            "rows_identical": True}
+
+
+def delta_check(sf: float) -> dict:
+    """At sf=1, one update script on a mutable store: each plan ``GOpt``
+    makes on cuda gives the same rows on ``device="cuda"`` and on
+    ``device="cpu"`` (the plain versions), for the benchmark queries and
+    the update stream's reads, over the delta overlay and after
+    compaction (the fused chains on cuda, once measured, too)."""
+    import numpy as np
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.graphdb.delta import MutableGraphStore
+    from repro_torch.graphdb.ldbc import _zipf_targets, generate_ldbc
+    from repro_torch.graphdb.torch_backend import torch_spec
+    t0 = time.perf_counter()
+    ms = MutableGraphStore(generate_ldbc(sf=sf, seed=7))
+    rng = np.random.default_rng(SEED + 2)
+    state = {"persons": list(range(*ms.base.type_range("PERSON"))),
+             "deleted": set()}
+    writes = mutate_writes(ms, rng, state, CHECK_MUTATE_SIZES, last=True)
+    for name, args in writes:
+        getattr(ms, name)(*args)
+    gopt, cpu = GOpt(ms), torch_spec("cpu")
+    pids = _zipf_targets(rng, 4, ms.base.v_count["PERSON"]).tolist()
+    cases = [(n, t, p) for n, t, p in QUERIES] + [
+        (n, t, {"pid": int(p)}) for n, t in MUTATE_QUERIES for p in pids]
+    rows = {}
+
+    def compare(what):
+        n_rows = 0
+        for name, text, params in cases:
+            opt = gopt.optimize(text, params)
+            th, _ = gopt.execute(opt, params=params, backend=cpu)
+            for _ in range(2):          # the first run measures the chains
+                tc, _ = gopt.execute(opt, params=params)
+                _rows_equal(name, f"cuda vs cpu, {what}", tc, th)
+            n_rows += tc.nrows
+        rows[what] = n_rows
+
+    compare("overlay")
+    gopt.compact()
+    compare("compacted")
+    return {"phase": "check", "what": "delta", "sf": sf,
+            "writes": len(writes), "queries": len(cases),
+            "result_rows": rows, "identical": True,
             "seconds": time.perf_counter() - t0}
 
 
@@ -1411,7 +2141,7 @@ def run() -> int:
     emit(synth)
     probe_gates(synth)
 
-    main_rec, probes = main_path(SF)
+    main_rec, probes, store = main_path(SF)
     emit(main_rec)
     captured = {}
     for label, inputs in probes.items():
@@ -1421,6 +2151,24 @@ def run() -> int:
     del probes, inputs
 
     emit(cross_check(CHECK_SF))
+    emit(delta_check(CHECK_SF))
+
+    # the update stream takes the sf=100 store over: nothing else may hold
+    # it, so the base it replaces at compaction can go
+    held = [store]
+    del store
+    mutate_rec, gopt, probes = mutate_path(held.pop(), dev, MUTATE_SIZES,
+                                           MUTATE_ROUNDS, SF)
+    emit(mutate_rec)
+    view_recs = []
+    for label, inputs in probes.items():
+        view_recs.append(probe_phase(label, *inputs))
+        emit(view_recs[-1])
+    del probes, inputs
+    emit(chaos_path(gopt, dev))
+    del gopt
+    gc.collect()
+    torch.cuda.empty_cache()
 
     serve_rec, model, calls = serve_path()
     emit(serve_rec)
@@ -1479,8 +2227,10 @@ def run() -> int:
             "wcoj_intersect",
             "src/repro_torch/kernels/wcoj_intersect/csrc/wcoj_intersect.cu",
             "src/repro/kernels/wcoj_intersect/wcoj_intersect.py:39",
-            captured["glogue_most_steps"], [synth, *captured.values()],
-            main_rec["launches"].get("wcoj_intersect", 0)),
+            captured["glogue_most_steps"],
+            [synth, *captured.values(), *view_recs],
+            main_rec["launches"].get("wcoj_intersect", 0)
+            + mutate_rec["launches"].get("wcoj_intersect", 0)),
         kernel_entry(
             "flash_attention",
             "src/repro_torch/kernels/flash_attention/csrc/"

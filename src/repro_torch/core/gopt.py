@@ -579,3 +579,53 @@ class GOpt:
         import random as _r
         rng = _r.Random(seed)
         return [random_plan(pattern, rng) for _ in range(n)]
+
+    # -------------------------------------------------------------- mutations
+    def _mutable(self):
+        if not callable(getattr(self.store, "insert_edge", None)):
+            raise TypeError(
+                "store is frozen; wrap it in repro_torch.graphdb.delta."
+                "MutableGraphStore to accept mutations")
+        return self.store
+
+    def insert_vertex(self, vtype: str, props: dict | None = None) -> int:
+        return self._mutable().insert_vertex(vtype, props)
+
+    def delete_vertex(self, gid: int) -> bool:
+        return self._mutable().delete_vertex(gid)
+
+    def insert_edge(self, triple, src: int, dst: int,
+                    props: dict | None = None) -> bool:
+        return self._mutable().insert_edge(triple, src, dst, props)
+
+    def delete_edge(self, triple, src: int, dst: int) -> bool:
+        return self._mutable().delete_edge(triple, src, dst)
+
+    def snapshot(self):
+        """Pin the store's current MVCC snapshot (None on a frozen store)."""
+        snap_fn = getattr(self.store, "snapshot", None)
+        return snap_fn() if callable(snap_fn) else None
+
+    def delta_info(self) -> dict | None:
+        fn = getattr(self.store, "delta_info", None)
+        return fn() if callable(fn) else None
+
+    def compact(self, rebuild_glogue: bool = True) -> dict:
+        """Merge the delta overlay into a rebuilt base CSR, re-derive
+        statistics and bump the stats epoch (cached plans re-cost on next
+        prepare).  GLogue is rebuilt on this GOpt's own spec: on cuda its
+        triangle counts probe the new CSR through the ``wcoj_intersect``
+        kernel.  Returns the compaction event dict."""
+        event = self._mutable().compact()
+        self.refresh_stats(rebuild_glogue=rebuild_glogue)
+        return event
+
+    # ----------------------------------------------------------------- serve
+    def serve(self, **kw) -> "object":
+        """Continuous-batching query service over this GOpt (DESIGN.md §9):
+        a ``repro_torch.graphdb.serve.QueryServer`` that coalesces submitted
+        ``(query, params)`` requests into ``execute_many`` waves per cached
+        plan.  Keyword arguments forward to the ``QueryServer``
+        constructor (``max_pending``, ``max_wave``, ``hot_plans``, ...)."""
+        from repro_torch.graphdb.serve import QueryServer
+        return QueryServer(self, **kw)

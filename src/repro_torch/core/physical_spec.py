@@ -19,13 +19,17 @@ them so binding tables stay resident.  ``TransferStats`` is the
 instrumentation hook proving residency: backends record every host<->device
 data movement, tagged with the engine's current execution phase.
 
-One backend ships in this package (lazily imported on first ``get_spec``):
+Two backends ship in this package (lazily imported on first ``get_spec``):
 
 - ``torch`` — device-resident ``torch.Tensor`` columns (int32 ids, bool
   masks), eager PyTorch primitives (``graphdb/torchops.py``), the
   hand-written CUDA ``wcoj_intersect`` kernel for membership probes, and a
   sort-merge / sorted-run relational tail.  One spec per device:
   ``torch`` on cuda, ``torch[cpu]`` on the host (``torch_spec(device)``).
+- ``numpy`` — the host path over ``repro_torch.graphdb.vecops``: the
+  tests' host oracle and the last rung of the serving layer's degradation
+  ladder.  A ``QueryServer`` over a device spec has no host rung unless
+  its caller passes ``fallback_spec`` explicitly.
 
 Adding another backend: subclass ``OperatorSet``, build a ``PhysicalSpec``
 with a ``make_operators`` factory and a ``CostParams``, call
@@ -284,6 +288,9 @@ class OperatorSet:
     # dtype the set stages id/position columns in (the device sets pin
     # torch.int32); None accepts any integer dtype
     index_dtype = None
+    # False on sets whose arrays live on an accelerator: the QueryServer
+    # offers its host rung (``fallback_spec``) by default only when True
+    on_host = True
 
     def __init__(self, store):
         self.store = store
@@ -472,7 +479,10 @@ _REGISTRY: dict[str, PhysicalSpec] = {}
 
 # built-in backends, imported on first lookup (registration is a module
 # side effect) so importing the engine never builds an operator set
-_LAZY_BACKENDS = {"torch": "repro_torch.graphdb.torch_backend"}
+_LAZY_BACKENDS = {
+    "torch": "repro_torch.graphdb.torch_backend",
+    "numpy": "repro_torch.graphdb.numpy_backend",
+}
 
 
 def register_spec(spec: PhysicalSpec, overwrite: bool = False) -> PhysicalSpec:

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -192,7 +193,9 @@ class FusedChain:
                             for p in h.probes))
                      for h in self.spec.hops)
         vp = tuple(ops._vprop_dev(p) for p in vprops)
-        ep = tuple(ops._eprop_dev(p) for p in eprops)
+        # (offsets, column): a chain runs only where the snapshot leaves its
+        # triples untouched, so its edges are all base edges
+        ep = tuple(ops._eprop_dev(p)[:2] for p in eprops)
         scal = ops.asarray(np.asarray(list(scalars), dtype=np.int32))
         # eager code needs no static IN-set shapes: each list goes up as
         # it is (an empty one is a dead argument of its static variant)
@@ -235,14 +238,20 @@ class TorchOperators(OperatorSet):
         super().__init__(store)
         self.device = torch.device(device)
         _require_device(self.device)
+        self.on_host = self.device.type == "cpu"
         if max(store.n_vertices, store.n_edges) >= _I32_MAX:
             raise ValueError(
                 "torch backend stages vertex ids and CSR offsets through "
                 f"int32; store has {store.n_vertices} vertices / "
                 f"{store.n_edges} edges")
-        # id(csr) -> [csr, indptr, indices, pos | None, search index | None]
+        # id(csr) -> (weakref(csr), [indptr, indices, pos | None,
+        # search index | None]); an entry leaves with its host CSR
         self._dev = {}
-        self._props = {}  # ("v"|"e", prop) -> device property column(s)
+        # id(host overlay column) -> (weakref(column), device column)
+        self._cols = {}
+        # ("v"|"e", prop, compaction epoch) -> device property column(s)
+        self._props = {}
+        self._epoch = getattr(store, "compaction_epoch", 0)
         self._z32 = torch.zeros(0, dtype=torch.int32, device=self.device)
         self._chains = {}     # (chain signature, csr ids) -> FusedChain
 
@@ -255,6 +264,7 @@ class TorchOperators(OperatorSet):
                                                   for p in h.probes]))
 
     def chain_program(self, spec) -> FusedChain:
+        self._sweep_epoch()
         key = self._chain_key(spec)
         prog = self._chains.get(key)
         if prog is not None:
@@ -397,15 +407,58 @@ class TorchOperators(OperatorSet):
         # the stable sort puts each key's minimal row first in its run
         return torch.sort(order[flag]).values.to(torch.int32)
 
+    # ------------------------------------------------------ device caches
+    def _sweep_epoch(self):
+        """A compaction swaps the store's base CSRs: drop what was derived
+        from the old base — the property columns keyed by the old epoch and
+        every fused-chain handle (its spec holds the old CSRs, which would
+        otherwise stay alive, with their device twins, in the chain LRU)."""
+        epoch = getattr(self.store, "compaction_epoch", 0)
+        if epoch == self._epoch:
+            return
+        self._epoch = epoch
+        self._chains.clear()
+        for key in [k for k in self._props if k[2] != epoch]:
+            self._props.pop(key, None)
+
+    def _cache_weakly(self, name: str, host, value) -> None:
+        """Store ``value`` in the cache ``name`` under ``id(host)``, beside
+        a weak reference to ``host``; the entry is dropped when ``host`` is
+        collected (under a mutation stream every snapshot builds new delta
+        views and overlay columns, and a compaction retires the whole
+        base)."""
+        getattr(self, name)[id(host)] = (weakref.ref(host), value)
+        weakref.finalize(host, _forget, weakref.ref(self), name, id(host))
+
+    @staticmethod
+    def _cached(cache: dict, host):
+        # the stored host reference guards against address reuse
+        ent = cache.get(id(host))
+        return ent[1] if ent is not None and ent[0]() is host else None
+
     # ------------------------------------------------------ property gathers
+    def _col_dev(self, host_col: np.ndarray):
+        """Device twin of a host overlay column (``MutableGraphStore.
+        ext_vertex_prop_column`` / ``overlay_edge_prop_column``), keyed by
+        object identity.  The host INT64_MIN missing value is narrowed to
+        the in-band int32 one before staging."""
+        ent = self._cached(self._cols, host_col)
+        if ent is None:
+            staged = np.where(host_col == _I64_MIN, _I32_MIN, host_col)
+            ent = self._stage(staged)
+            self._cache_weakly("_cols", host_col, ent)
+        return ent
+
     def _vprop_dev(self, prop: str):
-        """One device column per vertex property, indexed by global id
-        (types without the property hold the int32 missing sentinel), so a
-        property gather is a single device take."""
-        key = ("v", prop)
+        """One device column per vertex property over the *base* store,
+        indexed by global id (types without the property hold the int32
+        missing value), so a property gather is a single device take.
+        Keyed by compaction epoch, so a rebuilt base re-stages."""
+        self._sweep_epoch()
+        key = ("v", prop, self._epoch)
         ent = self._props.get(key)
         if ent is None:
-            st = self.store
+            st = getattr(self.store, "base", self.store)
             col = np.full(st.n_vertices, _I32_MIN, dtype=np.int64)
             for t in st._sorted_types():
                 tc = st.v_props.get(t, {}).get(prop)
@@ -417,12 +470,15 @@ class TorchOperators(OperatorSet):
         return ent
 
     def _eprop_dev(self, prop: str):
-        """Per-triple edge-property columns concatenated on the device, plus
-        per-triple offsets: ``col[offset[triple_id] + pos]``."""
-        key = ("e", prop)
+        """Per-triple edge-property columns of the *base* store concatenated
+        on the device, plus per-triple offsets: ``col[offset[triple_id] +
+        pos]``; the base nnz rides along, so overlay positions (``>=``
+        it) split off."""
+        self._sweep_epoch()
+        key = ("e", prop, self._epoch)
         ent = self._props.get(key)
         if ent is None:
-            st = self.store
+            st = getattr(self.store, "base", self.store)
             offsets, parts, off = [], [], 0
             for t in sorted(st.out_csr, key=repr):
                 tc = st.e_props.get(t, {}).get(prop)
@@ -436,36 +492,67 @@ class TorchOperators(OperatorSet):
             flat = np.concatenate(parts) if parts else np.zeros(0, np.int64)
             ent = self._props[key] = (
                 self._stage(np.asarray(offsets, dtype=np.int64)),
-                self._stage(flat))
+                self._stage(flat), off)
         return ent
 
     def vertex_prop(self, ids, prop: str):
-        return self.take(self._vprop_dev(prop), self._col(ids))
+        """Gather by global id.  On a mutable store, extension ids (``>=
+        base_n_vertices``) read the overlay column.  Each side's index is
+        clamped into its column before the gather and the sides are then
+        selected with ``where``: ``index_select`` has no clip mode, and an
+        out-of-range index raises on the CPU and fires a device-side
+        assert on the card."""
+        ids = self._col(ids)
+        base = self._vprop_dev(prop)
+        st = self.store
+        bv = getattr(st, "base_n_vertices", None)
+        if bv is None or getattr(st, "id_space", bv) <= bv:
+            return self.take(base, ids)
+        ext = self._col_dev(st.ext_vertex_prop_column(prop))
+        out = self.take(base, ids.clamp(max=bv - 1))
+        return torch.where(ids < bv, out, self.take(
+            ext, (ids - bv).clamp(0, ext.shape[0] - 1)))
 
     def edge_prop(self, triple_ids, pos, prop: str):
+        """``col[offset[triple_id] + pos]`` over the base; on a mutable
+        store, positions ``>= nbase`` (overlay edges) read the overlay
+        column, with the same clamp-then-``where`` as ``vertex_prop``."""
         pos = self._col(pos)
-        offsets, flat = self._eprop_dev(prop)
+        offsets, flat, nbase = self._eprop_dev(prop)
+        st = self.store
+        over = getattr(st, "overlay_edge_slots", 0) > 0
         if flat.shape[0] == 0:
-            return torch.full(pos.shape, _I32_MIN, dtype=torch.int32,
-                              device=self.device)
-        return self.take(flat, self.take(offsets, self._col(triple_ids))
-                         + pos)
+            out = torch.full(pos.shape, _I32_MIN, dtype=torch.int32,
+                             device=self.device)
+        else:
+            at = self.take(offsets, self._col(triple_ids)) + pos
+            out = self.take(flat, at.clamp(max=flat.shape[0] - 1)
+                            if over else at)
+        if over:
+            ov = self._col_dev(st.overlay_edge_prop_column(prop))
+            out = torch.where(pos < nbase, out, self.take(
+                ov, (pos - nbase).clamp(0, ov.shape[0] - 1)))
+        return out
 
     # --------------------------------------------------------------- pattern
     def _csr_dev(self, csr, probe: bool = False):
-        """Device twin (int32) of a host CSR, keyed by object identity; the
-        stored host reference guards against address reuse.  Returns
-        ``(indptr, indices, pos, index)``: ``index`` is the K1 search index
-        (``build_search_index``), built on the device at the first
-        ``probe`` of the CSR and kept with it; None until then."""
-        ent = self._dev.get(id(csr))
-        if ent is None or ent[0] is not csr:
-            ent = self._dev[id(csr)] = [
-                csr, self._stage(csr.indptr), self._stage(csr.indices),
-                self._stage(csr.pos) if csr.pos is not None else None, None]
-        if probe and ent[4] is None:
-            ent[4] = build_search_index(ent[2])
-        return tuple(ent[1:])
+        """Device twin (int32) of a host CSR — a base CSR or a delta view's
+        (``DeltaAdj.csr``) — keyed by object identity; the stored weak
+        host reference guards against address reuse, and the entry leaves
+        when the CSR is collected.  Returns ``(indptr, indices, pos,
+        index)``: ``index`` is the K1 search index (``build_search_index``),
+        built on the device at the first ``probe`` of the CSR and kept with
+        it; None until then."""
+        self._sweep_epoch()
+        ent = self._cached(self._dev, csr)
+        if ent is None:
+            ent = [self._stage(csr.indptr), self._stage(csr.indices),
+                   self._stage(csr.pos) if csr.pos is not None else None,
+                   None]
+            self._cache_weakly("_dev", csr, ent)
+        if probe and ent[3] is None:
+            ent[3] = build_search_index(ent[1])
+        return tuple(ent)
 
     def scan(self, lo: int, hi: int):
         return torch.arange(int(lo), int(hi), dtype=torch.int32,
@@ -549,6 +636,15 @@ class TorchOperators(OperatorSet):
             order, starts, tuple(self._col(values[nm][1]) for nm in names),
             tuple(values[nm][0] for nm in names))
         return first.to(torch.int32), dict(zip(names, outs))
+
+
+def _forget(ops_ref, name: str, key: int) -> None:
+    """Finalizer of a cached host object: drop its entry from the cache
+    ``name`` if the operator set is still alive.  It runs before the
+    object's memory is freed, so no other object holds ``key`` yet."""
+    ops = ops_ref()
+    if ops is not None:
+        getattr(ops, name).pop(key, None)
 
 
 # ------------------------------------------------------------ physical rule

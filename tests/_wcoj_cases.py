@@ -1,6 +1,7 @@
 """CSRs and probes where a walk down K1's fence index is likely to go wrong,
 shared by the CPU tests (``test_torch_wcoj.py``) and the card's
-(``test_torch_kernels_gpu.py``).  Numpy only, seeded.
+(``test_torch_kernels_gpu.py``).  Numpy only (the delta views are built by
+the port's own ``DeltaAdj`` builder), seeded.
 
 Each case is ``(indptr, indices, rows, targets)`` as int32 arrays: rows
 sorted, every probe row real.  The probes of a case aim at every key of
@@ -94,4 +95,21 @@ def trouble_cases(seed=0):
                                replace=False)) for _ in range(30)]
     rows.insert(17, np.sort(rng.choice(10 ** 6, 30_000, replace=False)))
     add("hub", rows)
+    # delta views (``graphdb/delta.py::DeltaAdj``): indices padded with
+    # zeros past nnz to a power of two, pow2 rows past the real ones, empty
+    # with indptr at nnz — the probes aim 0 at every row, padded ones too
+    from repro_torch.graphdb.delta import _build_adj
+    for name, nnz, hub in (("delta_view_pow2", 1024, 300),
+                           ("delta_view_tail", 1025, 300),
+                           ("delta_view_short", 77, 0)):
+        keys = rng.integers(0, 40, nnz - hub)
+        keys = np.concatenate([keys, np.full(hub, 41)])
+        nbrs = rng.choice(10 ** 6, nnz, replace=False)
+        adj = _build_adj(keys.astype(np.int64), nbrs.astype(np.int64), None)
+        assert adj.nnz == nnz and adj.nnz_cap >= nnz and adj.row_cap > \
+            adj.n_rows
+        indptr = adj.csr.indptr.astype(np.int32)
+        indices = adj.csr.indices.astype(np.int32)
+        pr, pt = _probes(indptr, indices, rng)
+        cases[name] = (indptr, indices, pr, pt)
     return cases

@@ -731,3 +731,115 @@ def test_wcoj_misaligned_indices_take_search_never_the_plain_version(
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["wcoj_intersect.search"] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ------------------------------------------ the delta overlay on the card
+
+DELTA_QUERIES = CHAIN_QUERIES + [
+    ("knows_edges", "MATCH (a:PERSON)-[k:KNOWS]->(b:PERSON) "
+                    "WHERE a.id < 40 RETURN a.id AS aid, b.id AS bid, "
+                    "k.creationDate AS d, b.creationDate AS bd "
+                    "ORDER BY aid, bid", None),
+    ("knows_triangle", "MATCH (p:PERSON)-[:KNOWS]->(a:PERSON), "
+                       "(p)-[:KNOWS]->(b:PERSON), (a)-[:KNOWS]->(b) "
+                       "WHERE p.id = $pid RETURN count(a) AS n",
+     {"pid": 5}),
+]
+
+
+def _mutate(ms, seed=0, n=400):
+    """A seeded mix on ``ms``: PERSON inserts (with properties), KNOWS
+    inserts among old and new persons (with a creationDate), deletes of
+    base KNOWS edges, and two PERSON deletes at the end."""
+    rng = np.random.default_rng(seed)
+    knows = ("PERSON", "KNOWS", "PERSON")
+    t = next(t for t in ms.base.out_csr if t.label == "KNOWS")
+    csr = ms.base.out_csr[t]
+    lo, hi = ms.base.type_range("PERSON")
+    people = list(range(lo, hi))
+    for i in range(n):
+        k = rng.integers(0, 6)
+        if k == 0:
+            people.append(ms.insert_vertex("PERSON", {
+                "id": 900_000 + i, "creationDate": 1_500_000_000 + i}))
+        elif k < 5:
+            s, d = (int(x) for x in rng.choice(people, 2))
+            try:
+                ms.insert_edge(knows, s, d, {"creationDate": 1_600_000 + i})
+            except ValueError:          # a tombstoned base edge
+                pass
+        else:
+            p = int(rng.integers(0, csr.nnz))
+            r = int(np.searchsorted(csr.indptr, p, side="right") - 1)
+            ms.delete_edge(knows, lo + r, int(csr.indices[p]))
+    ms.delete_vertex(people[-1])
+    ms.delete_vertex(lo + 3)
+
+
+@pytest.mark.gpu
+def test_delta_path_on_the_card_matches_the_cpu(card):
+    """On an sf=0.1 mutable store with inserts, tombstones and extension
+    vertices, every query on cuda (K1 probing the base CSR and the insert
+    and tombstone views, all on ``fence``) is row-identical to the cpu,
+    before and after ``compact()``."""
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.graphdb.delta import MutableGraphStore
+    from repro_torch.graphdb.ldbc import generate_ldbc
+    ms = MutableGraphStore(generate_ldbc(sf=0.1, seed=7))
+    _mutate(ms)
+    gc, gh = GOpt(ms), GOpt(ms, device="cpu")
+    for what in ("overlay", "compacted"):
+        before = dict(kernels.LAUNCHES)
+        for name, text, params in DELTA_QUERIES:
+            for _ in range(2):                 # measuring run, then fused
+                tc, _ = gc.run(text, params)
+                th, _ = gh.run(text, params)
+                assert tc.nrows == th.nrows, (what, name)
+                for k in tc.cols:
+                    np.testing.assert_array_equal(
+                        np.asarray(tc.cols[k]), np.asarray(th.cols[k]),
+                        err_msg=f"{what}/{name}/{k}")
+        torch.cuda.synchronize()
+        k1 = kernels.LAUNCHES.get("wcoj_intersect", 0) - before.get(
+            "wcoj_intersect", 0)
+        assert k1 > 0
+        assert kernels.LAUNCHES.get("wcoj_intersect.fence", 0) - before.get(
+            "wcoj_intersect.fence", 0) == k1
+        if what == "overlay":
+            gc.compact()
+            gh.refresh_stats(rebuild_glogue=True)
+            assert gc.glogue.freq == gh.glogue.freq
+
+
+@pytest.mark.gpu
+def test_overlay_property_gathers_on_the_card(card):
+    """Extension ids and overlay edge positions through ``vertex_prop`` and
+    ``edge_prop`` on cuda: each side's index is clamped before the gather
+    (an unclamped ``index_select`` would fire a device-side assert), and
+    the values equal the store's host gathers."""
+    from repro_torch.graphdb.delta import MutableGraphStore
+    from repro_torch.graphdb.ldbc import generate_ldbc
+    from repro_torch.graphdb.torch_backend import torch_spec
+    ms = MutableGraphStore(generate_ldbc(sf=0.05, seed=7))
+    knows = ("PERSON", "KNOWS", "PERSON")
+    lo, hi = ms.base.type_range("PERSON")
+    g1 = ms.insert_vertex("PERSON", {"id": 901, "creationDate": 7})
+    g2 = ms.insert_vertex("PERSON", {"id": 902})
+    ms.insert_edge(knows, g1, g2, {"creationDate": 11})
+    ms.insert_edge(knows, lo, g1)
+    ops = torch_spec().operators(ms)
+    ids = np.array([g1, g2, lo, hi - 1, ms.base.n_vertices - 1],
+                   dtype=np.int64)
+    for prop in ("id", "creationDate", "firstName"):
+        got = ops.to_host(ops.vertex_prop(ops.asarray(ids), prop))
+        np.testing.assert_array_equal(got, ms.vertex_prop(ids, prop))
+    t = next(t for t in ms.base.out_csr if t.label == "KNOWS")
+    nb = ms.base.n_edges
+    tids = np.full(4, ms.triple_index()[t], dtype=np.int64)
+    pos = np.array([0, 5, nb, nb + 1], dtype=np.int64)
+    got = ops.to_host(ops.edge_prop(ops.asarray(tids), ops.asarray(pos),
+                                    "creationDate"))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, ms.edge_prop(tids, pos,
+                                                    "creationDate"))
+    assert got[2] == 11
