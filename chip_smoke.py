@@ -27,15 +27,35 @@ Phases, each printing one JSON line:
 5. kernel  — the probe again on two membership probes GLogue made in
              phase 4, captured on the card: the one with the most probes
              and the one with the most binary-search steps;
-6. check   — at sf=1, GLogue frequencies, plans and all 25 results equal on
+6. gremlin — two Gremlin traversals through phase 4's ``GOpt`` on cuda: the
+             Gremlin module docstring's 2-hop group count on the LDBC
+             schema and ic3 with ``$pid`` bound through ``.param`` (prepared
+             once, run with two bindings); each with the canonical GIR of
+             its Cypher twin, sharing its cached plan, with identical rows;
+7. sharded — the sharded backend on phase 4's store over a one-rank NCCL
+             group on cuda:0 (one card is a world of one; NCCL across
+             ranks is not exercised): ``GOpt(store, backend="sharded",
+             devices=1)`` (GLogue probing through K1 on the shard
+             blocks), then each of the 25 queries optimised on the sharded
+             spec and its plan run twice on ``sharded`` and twice on
+             ``torch``: identical rows (or both at the blow-up guard), no
+             mid-plan copy, the frontier and emit collectives recorded, no
+             gather at one shard, one K1 launch per sharded probe, all on
+             ``fence``;
+8. kernel  — the sharded probe: phase 5's ``glogue_most_rows`` CSR
+             partitioned four ways, the rank-local probe function run on
+             each block in turn; the blocks' hit and position sums equal
+             the whole-CSR K1 result and the plain version bit for bit;
+             each block timed as in phase 3, beside its bytes bound;
+9. check   — at sf=1, GLogue frequencies, plans and all 25 results equal on
              ``device="cuda"`` and ``device="cpu"`` (the plain versions),
              and the fused chains on cuda, the per-hop loop on cuda and the
              fused chains on the cpu give identical rows;
-7. check   — at sf=1 again, a mutable store after one update script (the
-             stream of phase 8, scaled down): the 25 queries and the
+10. check  — at sf=1 again, a mutable store after one update script (the
+             stream of phase 11, scaled down): the 25 queries and the
              stream's reads give the same plans and rows on cuda and cpu,
              over the delta overlay and after compaction;
-8. mutate  — graph serving under writes: phase 4's sf=100 store wrapped in
+11. mutate — graph serving under writes: phase 4's sf=100 store wrapped in
              ``MutableGraphStore``, ``GOpt`` on cuda and
              ``gopt.serve(overlap=True)`` answering 16 rounds of an
              interleaved stream through ``submit_update`` / ``submit``:
@@ -53,10 +73,10 @@ Phases, each printing one JSON line:
              launched (all on ``fence``) on the insert and tombstone
              views, chains declining on the delta and fused on untouched
              triples, device memory back after compaction;
-9. kernel  — the probe on the insert-view and the tombstone-view probes
-             with the most probes captured in phase 8 (``DeltaAdj`` views,
+12. kernel — the probe on the insert-view and the tombstone-view probes
+             with the most probes captured in phase 11 (``DeltaAdj`` views,
              indices zero-padded to a power of two), as in phase 3;
-10. chaos  — the compacted store served through four fault-injecting
+13. chaos  — the compacted store served through four fault-injecting
              wrappers of the cuda spec: transient K1 faults, a poison
              binding and a latency spike over a fresh write burst; three
              fused-chain faults that walk the breaker to the per-hop loop
@@ -67,7 +87,7 @@ Phases, each printing one JSON line:
              and the same permanent fault on a server left at its
              default, which has no host rung on the card and fails the
              request;
-11. serve  — the serving path: OLMoE-1B-7B at full width and depth in bf16
+14. serve  — the serving path: OLMoE-1B-7B at full width and depth in bf16
              (random weights from a seeded generator on the card),
              ``ServeEngine`` with 8 slots of 4096 positions answering 16
              requests (prompts of 128-2048 tokens, 64 new tokens each);
@@ -75,7 +95,7 @@ Phases, each printing one JSON line:
              kernel's tensor-core route (``tc``), every decode attention
              through its split route (``split``), and every expert product
              through the grouped-matmul kernel's tensor-core route;
-12. kernel — each of those two kernels on calls captured in phase 11 (the
+15. kernel — each of those two kernels on calls captured in phase 14 (the
              longest prompt's prefill and one decode tick for attention;
              that prefill's and that tick's w1 and w2 products for the
              grouped matmul), against its plain version within the
@@ -89,10 +109,10 @@ Phases, each printing one JSON line:
              the bound, attention also with a cold L2; then the scalar
              routes on fp32 casts: attention's ``rows`` on the prefill,
              the grouped matmul's ``simt`` on the decode w1 product;
-13. check  — OLMoE at full width but 2 layers, in float32 with TF32 off:
+16. check  — OLMoE at full width but 2 layers, in float32 with TF32 off:
              a 256-token prefill and 4 teacher-forced decode steps give the
              same logits on ``device="cuda"`` and ``device="cpu"``;
-14. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
+17. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
              13.7 GB embedding table; random fp32 weights from a seeded
              generator on the card) serving the reference's three shapes:
              ``serve_p99`` (batch 512) 50 times, ``serve_bulk`` (batch
@@ -104,7 +124,7 @@ Phases, each printing one JSON line:
              on the host and copied to the card outside the timed window
              (``recsys_copy``); then one more forward of each shape under
              ``torch.profiler`` (no ``torch.cat`` kernel may appear);
-15. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
+18. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
              ``serve_bulk`` lookups, and on ``serve_bulk`` written through
              ``out`` into a buffer of the deep tower's padded shape (the
              padding columns untouched), against its plain version (1e-4,
@@ -113,7 +133,7 @@ Phases, each printing one JSON line:
              call, with one ``torch.nn.functional.embedding_bag`` call as
              the yardstick; then ``serve_p99`` on the ``warp`` route,
              through a view of the same table one element past its base;
-16. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
+19. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
@@ -657,11 +677,13 @@ def glogue_probes(ops, calls: dict) -> dict:
     return probes
 
 
-def main_path(sf: float) -> tuple[dict, dict, object]:
+def main_path(sf: float) -> tuple[dict, dict, object, object, object]:
     """Store -> GOpt on cuda -> the 25 queries twice.  Returns the phase
     record, the inputs of two GLogue intersect calls (with their CSR's
     search index): the one with the most probes and the one with the most
-    search steps, and the store (the update stream writes to it)."""
+    search steps, the store (the update stream writes to it), the GOpt
+    (phase ``gremlin`` runs through it) and the host CSR of the call with
+    the most probes (phase ``sharded_probe`` partitions it)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.gopt import GOpt
@@ -721,7 +743,8 @@ def main_path(sf: float) -> tuple[dict, dict, object]:
            "warm_ms_total_ok": sum(q["ms"] for q in ok),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "queries": queries}
-    return rec, glogue_probes(ops, calls), store
+    return (rec, glogue_probes(ops, calls), store, gopt,
+            calls["most_rows"][2])
 
 
 def _rows_equal(name: str, what: str, a, b) -> None:
@@ -772,6 +795,303 @@ def cross_check(sf: float) -> dict:
             "result_rows": rows, "glogue_freqs": len(gc.glogue.freq),
             "fused_chain_dispatches": fused, "identical": True,
             "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------- Gremlin and the sharded backend
+
+GREMLIN_TWO_HOP = ("MATCH (v1:PERSON)-[:WORKAT]->(v2:ORGANISATION)"
+                   "-[:ISLOCATEDIN]->(v3:COUNTRY) WHERE v3.name = 'China' "
+                   "RETURN v1, count(*) AS n")
+GREMLIN_BINDINGS = [{"pid": 5}, {"pid": 1234}]
+SHARDED_PROBE_SHARDS = 4
+
+
+def gremlin_traversals(schema) -> list[tuple]:
+    """Phase ``gremlin``'s traversals beside their Cypher twins: ``(name,
+    traversal factory, cypher text, bindings)``.  The first is the Gremlin
+    module docstring's 2-hop group count on the LDBC schema
+    (PERSON-WORKAT->ORGANISATION-ISLOCATEDIN->COUNTRY 'China'), the second
+    ic3 with ``$pid`` bound late through ``.param``."""
+    from repro_torch.core import ir
+    from repro_torch.core.gremlin import g
+
+    def two_hop():
+        return (g(schema).V("PERSON").as_("v1").out("WORKAT")
+                .as_("v2", types=["ORGANISATION"]).out("ISLOCATEDIN")
+                .as_("v3", types=["COUNTRY"])
+                .where(ir.Cmp("=", ir.Prop("v3", "name"), ir.Lit("China")))
+                .group_count("v1", as_="n"))
+
+    def ic3():
+        t = g(schema)
+        (t.V("PERSON").as_("p").both("KNOWS")
+         .as_("friend", types=["PERSON"])
+         .in_("HASCREATOR").as_("m", types=["POST", "COMMENT"])
+         .out("HASTAG").as_("t", types=["TAG"])
+         .where(ir.Cmp("=", ir.Prop("p", "id"), t.param("pid"))))
+        return (t.group_by([(ir.Var("friend"), "friend")],
+                           [(ir.Agg("COUNT", ir.Var("m")), "cnt")])
+                .order_by((ir.Var("cnt"), False)).limit(20).plan())
+
+    ic3_text = next(text for name, text, _ in QUERIES if name == "ic3")
+    return [("two_hop_group_count", two_hop, GREMLIN_TWO_HOP, [None]),
+            ("ic3_param", ic3, ic3_text, GREMLIN_BINDINGS)]
+
+
+def gremlin_path(gopt) -> dict:
+    """Two Gremlin traversals through the main path's ``GOpt`` on cuda:
+    each with the canonical GIR of its Cypher twin, prepared once (the
+    twin's cached plan), run per binding with rows identical to the
+    twin's."""
+    import torch
+    from repro_torch.core import ir
+    from repro_torch.core.parser import parse_cypher
+    from repro_torch.core.physical_spec import TransferStats
+    out = []
+    for name, make, text, bindings in gremlin_traversals(gopt.schema):
+        plan = make()
+        require(ir.canonical_form(plan)
+                == ir.canonical_form(parse_cypher(text, gopt.schema)),
+                f"gremlin {name}: GIR differs from its Cypher twin")
+        t0 = time.perf_counter()
+        pq = gopt.prepare(plan)
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        require(pq is gopt.prepare(text),
+                f"gremlin {name}: not the Cypher twin's cached plan")
+        runs = []
+        for params in bindings:
+            t0 = time.perf_counter()
+            tbl, st = pq.execute(params)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want, _ = gopt.run(text, params)
+            _rows_equal(name, "gremlin vs cypher", tbl, want)
+            d2h = TransferStats.mid_plan_d2h(st.transfers)
+            require(d2h == 0, f"gremlin {name}: {d2h} mid-plan copies")
+            runs.append({"params": params, "rows": tbl.nrows, "ms": ms})
+        out.append({"name": name, "prepare_ms": prepare_ms, "runs": runs})
+    require(any(r["rows"] for t in out for r in t["runs"]),
+            "gremlin: every traversal came back empty")
+    return {"phase": "gremlin", "sf": SF, "gir_equal": True,
+            "rows_equal": True, "traversals": out}
+
+
+def sharded_path(store) -> dict:
+    """``GOpt(store, backend="sharded", devices=1)`` on cuda over a one-rank
+    NCCL group (one H100 is a world of one: NCCL with more ranks is not
+    exercised here), then each of the 25 queries optimised on the sharded
+    spec and its plan run twice on ``sharded`` and twice on ``torch``: rows
+    identical, no mid-plan copy, the expand collectives recorded, no
+    gather at one shard, K1 launched by every sharded probe, on
+    ``fence``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.core.physical_spec import TransferStats
+    from repro_torch.graphdb.torch_backend import torch_spec
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gs = GOpt(store, backend="sharded", devices=1)
+    torch.cuda.synchronize()
+    gopt_s = time.perf_counter() - t0
+    ops = gs.spec.operators(store)
+    backend = dist.get_backend(ops.group)
+    require(backend == "nccl" and ops.n_shards == 1
+            and ops.device.type == "cuda",
+            f"sharded: group {backend}, {ops.n_shards} shards on "
+            f"{ops.device}")
+    glogue_launches = kernels.LAUNCHES.get("wcoj_intersect", 0)
+    glogue_probes = ops.kernel_stats.count("dispatch", "sharded_probe")
+    require(glogue_launches == glogue_probes > 0,
+            f"sharded GLogue: {glogue_launches} K1 launches, "
+            f"{glogue_probes} probes")
+    specs = {"sharded": gs.spec, "torch": torch_spec("cuda")}
+    queries, sharded_launches, sharded_probes = [], 0, 0
+    for name, text, params in QUERIES:
+        rec = {"name": name}
+        opt = gs.optimize(text, params)
+        result = {}
+        for label, spec in specs.items():
+            for rep in range(2):
+                launched = kernels.LAUNCHES.get("wcoj_intersect", 0)
+                km = ops.kernel_stats.mark()
+                em = ops.exchange_stats.mark()
+                t0 = time.perf_counter()
+                try:
+                    tbl, st = gs.execute(opt, backend=spec, params=params)
+                    torch.cuda.synchronize()
+                except RuntimeError as exc:
+                    if "intermediate blow-up" not in str(exc):
+                        raise
+                    torch.cuda.synchronize()
+                    tbl = st = None
+                rec[f"{label}_ms" if rep else f"{label}_first_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                if label == "sharded":
+                    sharded_launches += kernels.LAUNCHES.get(
+                        "wcoj_intersect", 0) - launched
+                    sharded_probes += ops.kernel_stats.count(
+                        "dispatch", "sharded_probe", since=km)
+                    rec["exchanges"] = ops.exchange_stats.summary(em)
+                    expanded = ops.kernel_stats.count(
+                        "dispatch", "sharded_deg", since=km)
+                    emitted = ops.kernel_stats.count(
+                        "dispatch", "sharded_expand", since=km)
+            result[label] = (tbl, st)
+        (ts, ss), (tt, _) = result["sharded"], result["torch"]
+        require((ts is None) == (tt is None),
+                f"sharded {name}: only one spec stopped at the blow-up "
+                f"guard")
+        ex = rec["exchanges"]
+        require(expanded > 0 and "psum:expand_frontier" in ex,
+                f"sharded {name}: no frontier exchange")
+        require(emitted == 0 or "psum_scatter:expand_emit" in ex,
+                f"sharded {name}: an expand emitted with no reduce-scatter")
+        require(not any(k.startswith("all_gather") for k in ex),
+                f"sharded {name}: a gather at one shard: {sorted(ex)}")
+        if ts is None:
+            rec["outcome"] = "blowup"
+        else:
+            _rows_equal(name, "sharded vs torch", ts, tt)
+            d2h = TransferStats.mid_plan_d2h(ss.transfers)
+            require(d2h == 0, f"sharded {name}: {d2h} mid-plan copies")
+            rec.update(outcome="ok", rows=ts.nrows, mid_plan_d2h=d2h)
+        queries.append(rec)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(sharded_launches == sharded_probes > 0,
+            f"sharded queries: {sharded_launches} K1 launches, "
+            f"{sharded_probes} sharded probes")
+    require(launches.get("wcoj_intersect.fence", 0)
+            == launches.get("wcoj_intersect", 0),
+            f"sharded: {launches.get('wcoj_intersect.fence', 0)} of "
+            f"{launches.get('wcoj_intersect', 0)} K1 launches on fence")
+    ok = [q for q in queries if q["outcome"] == "ok"]
+    rec = {"phase": "sharded", "sf": SF, "shards": ops.n_shards,
+           "group": backend, "gopt_s": gopt_s, "spec": gs.spec.name,
+           "glogue_launches": glogue_launches,
+           "query_launches": sharded_launches, "launches": launches,
+           "queries_ok": len(ok), "queries_blowup": len(queries) - len(ok),
+           "warm_ms_total_ok": {label: sum(q[f"{label}_ms"] for q in ok)
+                                for label in specs},
+           "block_bytes": sum(blk.nbytes()
+                              for _, blk in ops._blocks.values()),
+           "rows_equal": True, "queries": queries}
+    # the blocks and the group go with the phase
+    store.__dict__["_physical_ops_cache"].pop(gs.spec.name)
+    del gs, ops
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_probe_phase(label: str, csr, indptr, indices, rows, targets,
+                        pos_map, index, reps: int = REPS) -> dict:
+    """The sharded backend's rank-local probe on a partition of a captured
+    CSR into ``SHARDED_PROBE_SHARDS`` blocks, one after another in one
+    process: the blocks' hits and positions summed on the card must
+    equal the whole-CSR K1 result and the plain version bit for bit, and
+    each block's K1 launch its plain version.  Each block's
+    probe function (``block_probe``: masks, one K1 launch, the position
+    map) and its K1 launch alone are timed over queued batches, beside the
+    block's bytes bound."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.graphdb.partition import partition_csr
+    from repro_torch.graphdb.sharded_backend import (_owned, block_probe,
+                                                     upload_block)
+    from repro_torch.kernels.wcoj_intersect.ops import (build_search_index,
+                                                        wcoj_intersect)
+    from repro_torch.kernels.wcoj_intersect.ref import wcoj_intersect_ref
+    i32 = torch.int32
+    n_shards = SHARDED_PROBE_SHARDS
+    t0 = time.perf_counter()
+    sh = partition_csr(csr, n_shards)
+    blocks = [upload_block(sh, r, lambda a: torch.as_tensor(
+        a, dtype=i32).to(rows.device)) for r in range(n_shards)]
+    for blk in blocks:
+        blk.index = build_search_index(blk.indices)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    whole = wcoj_intersect(indptr, indices, rows, targets, pos_map, index)
+    plain = wcoj_intersect_ref(indptr, indices, rows, targets, pos_map)
+    fence = kernels.LAUNCHES.get("wcoj_intersect.fence", 0)
+    hits = torch.zeros(rows.shape[0], dtype=i32, device=rows.device)
+    epos = torch.zeros_like(hits)
+    outs = []
+    for blk in blocks:
+        outs.append(block_probe(blk, rows, targets))
+        hits += outs[-1][0].to(i32)
+        epos += outs[-1][1]
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES.get("wcoj_intersect.fence", 0)
+            == fence + n_shards, f"{label}: a block probe left fence")
+    require(int(hits.max()) <= 1, f"{label}: a probe hit on two blocks")
+    found = hits > 0
+    for what, (f, e) in (("the whole-CSR kernel", whole),
+                         ("the plain version", plain)):
+        err = int((epos - e).abs().max())
+        require(torch.equal(found, f) and torch.equal(epos, e),
+                f"{label}: the block sums differ from {what} (found "
+                f"{int((found != f).sum())}, max abs err {err})")
+    R = rows.shape[0]
+    recs = []
+    for blk, (hit, _) in zip(blocks, outs):
+        mine, lrc = _owned(blk, rows)
+        owned = int(mine.sum())
+        n_hits = int(hit.sum())
+        nnz = int(blk.indptr[-1])
+        tgt = torch.where(mine, targets, -2).contiguous()
+        lrc = lrc.contiguous()
+        steps = search_steps(blk.indptr, lrc[mine])
+        # rows and targets read, found and epos written; two indptr words,
+        # one key per owned probe and one pos word per hit, capped by the
+        # block's arrays
+        nbytes = (R * (4 + 4 + 1 + 4) + min(4 * blk.indptr.shape[0],
+                                            8 * owned)
+                  + min(4 * nnz, 4 * owned))
+        if blk.pos is not None:
+            nbytes += min(4 * nnz, 4 * n_hits)
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = steps / SCALAR_OPS_PER_S * 1e3
+        args = (blk.indptr, blk.indices, lrc, tgt, blk.pos)
+        got, want = wcoj_intersect(*args, blk.index), wcoj_intersect_ref(*args)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"{label}: K1 on block {blk.rank} differs from the plain "
+                f"version")
+        # yardstick, as in probe_phase: one searchsorted over the block's
+        # packed (row << 32 | key) keys
+        deg = (blk.indptr[1:] - blk.indptr[:-1]).to(torch.int64)
+        keys = ((torch.repeat_interleave(torch.arange(
+            deg.shape[0], device=deg.device), deg) << 32)
+            | blk.indices[:nnz].to(torch.int64))
+        q = (lrc.to(torch.int64) << 32) + tgt.to(torch.int64)
+        recs.append({
+            "rank": blk.rank, "rows_per_shard": blk.rows_per_shard,
+            "nnz": nnz, "nnz_cap": int(blk.indices.shape[0]),
+            "owned_probes": owned, "hits": n_hits, "bytes": nbytes,
+            "ms": cuda_ms(lambda: block_probe(blk, rows, targets), reps,
+                          batch=PROBE_BATCH, queued=True),
+            "k1_ms": cuda_ms(lambda: wcoj_intersect(*args, blk.index),
+                             reps, batch=PROBE_BATCH, queued=True),
+            "plain_ms": cuda_ms(lambda: wcoj_intersect_ref(*args),
+                                max(3, reps // 4), warmup=1),
+            "library_ms": cuda_ms(lambda: torch.searchsorted(keys, q), reps,
+                                  batch=PROBE_BATCH, queued=True),
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations")})
+    return {"phase": "kernel", "name": "wcoj_intersect", "input": label,
+            "shards": n_shards, "rows": R, "setup_s": setup_s,
+            "equal": True, "max_abs_err": 0,
+            "whole_ms": cuda_ms(lambda: wcoj_intersect(
+                indptr, indices, rows, targets, pos_map, index), reps,
+                batch=PROBE_BATCH, queued=True),
+            "blocks_ms": sum(r["ms"] for r in recs),
+            "blocks_k1_ms": sum(r["k1_ms"] for r in recs),
+            "blocks": recs}
 
 
 # ------------------------------------------------ graph serving under writes
@@ -2141,14 +2461,22 @@ def run() -> int:
     emit(synth)
     probe_gates(synth)
 
-    main_rec, probes, store = main_path(SF)
+    main_rec, probes, store, gopt, most_rows_csr = main_path(SF)
     emit(main_rec)
     captured = {}
     for label, inputs in probes.items():
         captured[label] = probe_phase(label, *inputs)
         emit(captured[label])
         probe_gates(captured[label])
-    del probes, inputs
+    emit(gremlin_path(gopt))
+    del gopt
+    sharded_rec = sharded_path(store)
+    emit(sharded_rec)
+    shard_probe = sharded_probe_phase("sharded_probe_glogue_most_rows",
+                                      most_rows_csr,
+                                      *probes["glogue_most_rows"])
+    emit(shard_probe)
+    del probes, inputs, most_rows_csr
 
     emit(cross_check(CHECK_SF))
     emit(delta_check(CHECK_SF))
@@ -2228,8 +2556,9 @@ def run() -> int:
             "src/repro_torch/kernels/wcoj_intersect/csrc/wcoj_intersect.cu",
             "src/repro/kernels/wcoj_intersect/wcoj_intersect.py:39",
             captured["glogue_most_steps"],
-            [synth, *captured.values(), *view_recs],
+            [synth, *captured.values(), shard_probe, *view_recs],
             main_rec["launches"].get("wcoj_intersect", 0)
+            + sharded_rec["launches"].get("wcoj_intersect", 0)
             + mutate_rec["launches"].get("wcoj_intersect", 0)),
         kernel_entry(
             "flash_attention",

@@ -221,9 +221,12 @@ class GOpt:
                  plan_cache_size: int = 256,
                  pipeline: OptimizerPipeline | None = None,
                  verify: str | None = None,
-                 device: str | None = None):
+                 device: str | None = None,
+                 devices: int | None = None):
         self.store = store
         self.schema = store.schema
+        if devices is not None and backend != "sharded":
+            raise ValueError("devices= requires backend='sharded'")
         if backend == "torch":
             # device pin: each device is its own registered spec ("torch"
             # on cuda, "torch[cpu]") so plan caches and per-store operator
@@ -231,8 +234,14 @@ class GOpt:
             # there is none
             from repro_torch.graphdb.torch_backend import torch_spec
             self.spec = torch_spec(device)
+        elif backend == "sharded":
+            # shard-count and device pin: each pair is its own registered
+            # spec ("sharded[8]", "sharded[2,cpu]"), for the same reason
+            from repro_torch.graphdb.sharded_backend import sharded_spec
+            self.spec = sharded_spec(devices, device)
         elif device is not None:
-            raise ValueError("device= requires backend='torch'")
+            raise ValueError("device= requires backend='torch' or "
+                             "backend='sharded'")
         else:
             self.spec = get_spec(backend)
         self.stats = Statistics(store)

@@ -20,7 +20,7 @@ Supported grammar (enough for every query in the paper's Appendix A):
     node      := '(' [alias] [':' NAME ('|' NAME)*] [props] ')'
     edge      := '-[' [alias] [':' NAME ('|' NAME)*] ['*' (int|$param)] ']->'
 
-A Gremlin-style builder API is provided by ``repro.core.gremlin``.
+A Gremlin-style builder API is provided by ``repro_torch.core.gremlin``.
 """
 from __future__ import annotations
 

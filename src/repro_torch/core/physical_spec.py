@@ -482,6 +482,7 @@ _REGISTRY: dict[str, PhysicalSpec] = {}
 _LAZY_BACKENDS = {
     "torch": "repro_torch.graphdb.torch_backend",
     "numpy": "repro_torch.graphdb.numpy_backend",
+    "sharded": "repro_torch.graphdb.sharded_backend",
 }
 
 

@@ -112,4 +112,23 @@ def trouble_cases(seed=0):
         indices = adj.csr.indices.astype(np.int32)
         pr, pt = _probes(indptr, indices, rng)
         cases[name] = (indptr, indices, pr, pt)
+    # the sharded backend's blocks (``graphdb/partition.py``): one CSR with
+    # a hub among every 8^k +- 1 degree cut into 4 row ranges, each block's
+    # indices zero-padded past its nnz to the fattest block's pow2 capacity
+    # and the last block's rows past the CSR repeating its last offset
+    import types
+    from repro_torch.graphdb.partition import partition_csr
+    rows = [np.sort(rng.choice(10 * d + 10, d, replace=False))
+            for d in POWER_DEGREES + [3, 0, 1, 2]]
+    rows.insert(5, np.sort(rng.choice(10 ** 6, 20_000, replace=False)))
+    indptr, indices = _csr(rows)
+    sh = partition_csr(types.SimpleNamespace(indptr=indptr, indices=indices,
+                                             pos=None), 4)
+    assert sh.rows_per_shard * 4 > len(rows)
+    for r in range(4):
+        indptr = sh.indptr[r].astype(np.int32)
+        indices = sh.indices[r].astype(np.int32)
+        assert indptr[-1] < indices.shape[0]
+        pr, pt = _probes(indptr, indices, rng)
+        cases[f"shard_block_{r}"] = (indptr, indices, pr, pt)
     return cases

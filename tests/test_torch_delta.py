@@ -1,6 +1,7 @@
 """The port's delta store (``repro_torch.graphdb.delta``) held against the
-reference's (``repro.graphdb.delta``), the twin of ``tests/test_delta.py``
-without its sharded cases (which wait for the sharded backend).
+reference's (``repro.graphdb.delta``), the twin of ``tests/test_delta.py``;
+its sharded cases run here on one rank (``sharded[1,cpu]``) and, at two
+ranks, in ``test_torch_sharded.py``'s gloo world.
 
 Both sides start from one store (the reference's generator, carried across
 with ``import_store(export_store(...))``) and take the same seeded mutation
@@ -36,6 +37,8 @@ from repro_torch.graphdb.delta import (MutableGraphStore, StaleSnapshotError,
 from repro_torch.graphdb.storage import (build_store, export_store,
                                          import_store)
 from repro_torch.graphdb.torch_backend import torch_spec
+
+import _sharded_world
 
 QK = """MATCH (a:PERSON)-[:knows]->(b:PERSON)
 RETURN a.id AS aid, b.id AS bid ORDER BY aid, bid"""
@@ -149,8 +152,11 @@ def _table_eq(a, b, msg=""):
 
 
 def _port(store, backend):
-    return (GOpt(store, device="cpu") if backend == "cpu"
-            else GOpt(store, backend=backend))
+    if backend == "cpu":
+        return GOpt(store, device="cpu")
+    if backend == "sharded":
+        return GOpt(store, backend="sharded", devices=1, device="cpu")
+    return GOpt(store, backend=backend)
 
 
 def _key(t):
@@ -194,7 +200,7 @@ def test_snapshot_views_equal_reference(seed):
 
 @pytest.mark.parametrize("query", [QK, Q2HOP, QPROPS, QTRI],
                          ids=["knows", "two_hop", "purchases", "triangle"])
-@pytest.mark.parametrize("backend", ["cpu", "numpy"])
+@pytest.mark.parametrize("backend", ["cpu", "numpy", "sharded"])
 def test_overlay_rows_equal_reference(backend, query):
     """With inserts and tombstones live, the port (``torch[cpu]`` and its
     ``numpy`` spec) answers row-identically to the reference numpy
@@ -214,7 +220,17 @@ def test_overlay_rows_equal_reference_jax(query):
     _table_eq(got, want)
 
 
-@pytest.mark.parametrize("backend", ["cpu", "numpy"])
+@pytest.mark.parametrize("backend", ["cpu", "numpy", "sharded"])
+def test_overlay_parity_vs_frozen_oracle(backend):
+    """The reference's acceptance case: with the reference's insert/delete
+    mix live in the overlay, every spec answers row-identically to the
+    port's numpy spec on a frozen deep copy."""
+    pairs = _sharded_world.overlay_parity(lambda ms: _port(ms, backend))
+    for got, want in pairs:
+        assert got == want and got
+
+
+@pytest.mark.parametrize("backend", ["cpu", "numpy", "sharded"])
 def test_snapshot_isolation_under_writes(backend):
     """A query pinned at snapshot S answers as-of S while writes land: equal
     to the port's numpy spec on a deep copy taken at S, and to the

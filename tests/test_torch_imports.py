@@ -46,7 +46,8 @@ def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"torch_backend.py", "engine.py", "gopt.py", "ops.py",
             "transformer.py", "chip_smoke.py", "recsys.py", "wide_deep.py",
-            "base.py", "torchops.py"} <= names
+            "base.py", "torchops.py", "gremlin.py", "partition.py",
+            "sharded_backend.py"} <= names
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     assert {p.parent.name for p in PORT_FILES if p.parent.parent == kernels
             and p.name == "ops.py"} == {"wcoj_intersect", "flash_attention",

@@ -843,3 +843,110 @@ def test_overlay_property_gathers_on_the_card(card):
     np.testing.assert_array_equal(got, ms.edge_prop(tids, pos,
                                                     "creationDate"))
     assert got[2] == 11
+
+
+# ------------------------------------------------- the sharded backend (K1)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fence", "search"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_block_probes_on_the_card_sum_to_the_whole_probe(card, n_shards,
+                                                         which):
+    """The sharded backend's rank-local probe (``block_probe``: one K1
+    launch on one block, non-owned rows probing -2) on every block of a
+    partition, each on the route asked for and equal to the same function
+    on CPU tensors (the plain version); the blocks' hits and positions sum
+    to the plain probe of the whole CSR."""
+    from repro_torch.graphdb.partition import partition_csr
+    from repro_torch.graphdb.sharded_backend import block_probe, upload_block
+    rng = np.random.default_rng(n_shards)
+    deg = rng.integers(0, 40, 600)
+    deg[[17, 300]] = (9_000, 70_000)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    indices = np.concatenate([np.sort(rng.choice(10 ** 6, d, replace=False))
+                              for d in deg])
+    pos = rng.permutation(indices.shape[0])
+    rows = rng.integers(0, 600, 1 << 15)
+    slot = indptr[rows] + (rng.random(1 << 15) * deg[rows]).astype(np.int64)
+    tgt = np.where(rng.random(1 << 15) < 0.5,
+                   indices[np.minimum(slot, indices.shape[0] - 1)],
+                   rng.integers(-2, 10 ** 6, 1 << 15))
+    csr = dataclasses.make_dataclass("C", ["indptr", "indices", "pos"])(
+        indptr, indices, pos)
+    sh = partition_csr(csr, n_shards)
+    i32 = torch.int32
+    args = _probe_args(card, indptr, indices, rows, tgt, pos)
+    want = wcoj_intersect_ref(*args)
+    hits = torch.zeros(rows.shape[0], dtype=i32, device=card)
+    epos = torch.zeros_like(hits)
+    for r in range(n_shards):
+        out = []
+        for dev in (card, torch.device("cpu")):
+            blk = upload_block(sh, r, lambda a: torch.as_tensor(
+                a, dtype=i32).to(dev))
+            if which == "fence":
+                blk.index = build_search_index(blk.indices)
+            if dev.type == "cuda":
+                assert wcoj_route(blk.indices, blk.index) == which
+            before = kernels.LAUNCHES.get(f"wcoj_intersect.{which}", 0)
+            out.append(block_probe(blk, args[2].to(dev), args[3].to(dev)))
+            launched = kernels.LAUNCHES.get(f"wcoj_intersect.{which}", 0)
+            assert launched == before + (dev.type == "cuda")
+        torch.cuda.synchronize()
+        for a, b in zip(*out):
+            assert torch.equal(a.cpu(), b)
+        hits += out[0][0].to(i32)
+        epos += out[0][1]
+    assert torch.equal(hits > 0, want[0]) and int(hits.max()) == 1
+    assert torch.equal(epos, want[1])
+    assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.gpu
+def test_sharded_gopt_on_the_card_matches_torch(card):
+    """``GOpt(store, backend="sharded", devices=1)`` on cuda: a one-rank
+    NCCL group, GLogue and the Appendix-A queries probing through K1 on
+    the shard blocks (all on ``fence``), rows identical to the torch spec
+    on cuda and to the numpy spec, every expand's collectives recorded."""
+    import torch.distributed as dist
+    from repro_torch.graphdb.ldbc import generate_ldbc
+    store = generate_ldbc(sf=0.1, seed=7)
+    before = dict(kernels.LAUNCHES)
+    try:
+        _sharded_on_the_card(store, before)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sharded_on_the_card(store, before):
+    import torch.distributed as dist
+    from benchmarks import queries as Q
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.core.physical_spec import TransferStats
+    gs = GOpt(store, backend="sharded", devices=1)
+    ops = gs.spec.operators(store)
+    assert gs.spec.name == "sharded[1]" and ops.device.type == "cuda"
+    assert dist.get_backend(ops.group) == "nccl" and ops.n_shards == 1
+    gt = GOpt(store)
+    queries = ([(k, v, None) for k, v in Q.QC.items()]
+               + [(k, v, Q.QIC_PARAMS[k]) for k, v in Q.QIC.items()])
+    for name, text, params in queries:
+        opt = gs.optimize(text, params)
+        got, st = gs.execute(opt)
+        for other in (gt.execute(opt)[0],
+                      gs.execute(opt, backend="numpy")[0]):
+            assert got.nrows == other.nrows and set(got.cols) == \
+                set(other.cols)
+            for k in got.cols:
+                np.testing.assert_array_equal(np.asarray(got.cols[k]),
+                                              np.asarray(other.cols[k]),
+                                              err_msg=f"{name}/{k}")
+        assert TransferStats.mid_plan_d2h(st.transfers) == 0
+        assert "psum:expand_frontier" in st.exchanges
+        assert not any(k.startswith("all_gather") for k in st.exchanges)
+    torch.cuda.synchronize()
+    k1 = kernels.LAUNCHES.get("wcoj_intersect", 0) - before.get(
+        "wcoj_intersect", 0)
+    assert k1 > 0 and kernels.LAUNCHES.get("wcoj_intersect.fence", 0) \
+        - before.get("wcoj_intersect.fence", 0) == k1
