@@ -474,6 +474,15 @@ class PhysicalSpec:
             cache[self.name] = ops
         return ops
 
+    def release(self, store) -> None:
+        """Take ``store``'s cached operator set for this spec out of the
+        cache and let it free what it holds (its ``release``, where it has
+        one: the sharded set's blocks and the process group it created)."""
+        ops = store.__dict__.get("_physical_ops_cache", {}).pop(self.name,
+                                                                None)
+        if hasattr(ops, "release"):
+            ops.release()
+
 
 _REGISTRY: dict[str, PhysicalSpec] = {}
 

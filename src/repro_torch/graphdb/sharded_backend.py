@@ -57,7 +57,8 @@ initialised default group the shard count S is the power-of-two floor of
 backend does not fit the device) the collectives run over a new group of
 the first S ranks, and a rank outside it raises ``ValueError`` after
 taking part in ``dist.new_group``, as torch requires of every rank.
-Without a group the operator set creates a one-rank default group.
+Without a group the operator set creates a one-rank default group;
+``PhysicalSpec.release(store)`` destroys a group the set created.
 """
 from __future__ import annotations
 
@@ -211,7 +212,8 @@ class ShardedOperators(TorchOperators):
         dev = torch.device(device)
         _require_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
-        if not dist.is_initialized():
+        made_world = not dist.is_initialized()
+        if made_world:
             # a world of one over an in-process store: no port to pick
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
@@ -234,9 +236,29 @@ class ShardedOperators(TorchOperators):
         self.n_shards = n_shards
         self.rank = rank
         self.group = group
+        # the group ``release`` destroys: the default group if this set
+        # created it, else a subgroup it made, else none
+        self._own_group = (dist.group.WORLD if made_world else
+                           None if group is dist.group.WORLD else group)
         # id(csr) -> (weakref(csr), ShardBlock); an entry leaves with its
         # host CSR (base CSRs and delta views alike)
         self._blocks = {}
+
+    def release(self) -> None:
+        """Drop this set's device arrays (its blocks and the inherited
+        caches) and destroy the process group it created itself, if any.
+        The set makes no collective after; ``PhysicalSpec.release`` also
+        takes it out of its store's operator cache.  Destroying a default
+        group this set created ends it for every other set that joined it."""
+        self._blocks.clear()
+        self._dev.clear()
+        self._cols.clear()
+        self._chains.clear()
+        if self._own_group is not None and dist.is_initialized():
+            dist.destroy_process_group(
+                None if self._own_group is dist.group.WORLD
+                else self._own_group)
+        self._own_group = None
 
     # ------------------------------------------------------------- plumbing
     def _record_exchange(self, kind: str, label: str, elems: int, n: int = 1):
@@ -371,10 +393,10 @@ class ShardedOperators(TorchOperators):
         on the gathered keys (ascending by key, the single-device sets'
         group order), then every rank reduces its own chunk of the rows
         into per-group partials and the group combines them — SUM for
-        COUNT / SUM / AVG and the group sizes, MIN for MIN and each
-        group's first row, MAX for MAX.  The aggregates come out as the
-        torch set's: COUNT and SUM int64, AVG float64, MIN / MAX in the
-        column's dtype, ``first`` int32."""
+        SUM / AVG and the group sizes (which COUNT reuses), MIN for MIN
+        and each group's first row, MAX for MAX.  The aggregates come out
+        as the torch set's: COUNT and SUM int64, AVG float64, MIN / MAX in
+        the column's dtype, ``first`` int32."""
         keys = self._col(keys)
         n = keys.shape[0]
         if n == 0:
@@ -409,9 +431,6 @@ class ShardedOperators(TorchOperators):
             calls[{SUM: "psum", MIN: "pmin", MAX: "pmax"}[op]] += 1
             return self._all_reduce(t, op)
 
-        def counts():
-            return torch.bincount(g, minlength=ng_cap)
-
         def extreme(col, red):
             # the reduction's identity, so a group absent from the chunk
             # leaves the combined value alone
@@ -423,14 +442,18 @@ class ShardedOperators(TorchOperators):
             part = torch.full((ng_cap,), init, dtype=col.dtype, device=dev)
             return part.scatter_reduce_(0, g, col, red, include_self=True)
 
-        cnt = combine(counts(), SUM)
+        cnt = combine(torch.bincount(g, minlength=ng_cap), SUM)
         first = combine(extreme(rowidx, "amin"), MIN)
         names = list(values)
         outs = []
         for nm in names:
             fn, col = values[nm]
             if fn == "COUNT":
-                outs.append(combine(counts(), SUM))
+                # the group sizes, combined above; the reference reuses
+                # them too and records a psum for each COUNT all the same,
+                # so the ledger counts one here as well
+                outs.append(cnt)
+                calls["psum"] += 1
                 continue
             col = _pad(self._col(col), npad, 0)[lo:hi]
             if fn in ("SUM", "AVG"):

@@ -1,7 +1,8 @@
 """Multi-process gloo worlds for the port's sharded backend
 (``repro_torch.graphdb.sharded_backend``), shared by ``test_torch_sharded.py``
-and ``test_torch_delta.py``.  Port only (no jax, no reference package), so
-a spawned rank imports torch and the port and nothing else.
+and ``test_torch_delta.py``.  A spawned rank imports torch and the port and
+nothing else (no jax, no reference package); the parent runs the same delta
+scenarios on the reference (``pkg="repro"``) to hold the ranks' rows to it.
 
 ``spawn_world(world, tmp, tasks)`` starts ``world`` ranks with the ``spawn``
 method; they meet through a ``file://`` rendezvous under ``tmp`` (no port
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import importlib
 import multiprocessing
 import pickle
 import time
@@ -78,11 +80,17 @@ def rows(tbl) -> list:
 
 # ------------------------------------------------------------ delta scenarios
 
-def _mutable():
-    from repro_torch.graphdb.delta import MutableGraphStore
-    from repro_torch.graphdb.ldbc import generate_motivating
-    base = generate_motivating(n_person=50, n_product=20, n_place=8)
-    return base, MutableGraphStore(base)
+def _mutable(pkg: str = "repro_torch"):
+    """The motivating graph and a mutable store over it, from ``pkg``: the
+    port, or the reference in the parent."""
+    delta = importlib.import_module(f"{pkg}.graphdb.delta")
+    ldbc = importlib.import_module(f"{pkg}.graphdb.ldbc")
+    base = ldbc.generate_motivating(n_person=50, n_product=20, n_place=8)
+    return base, delta.MutableGraphStore(base)
+
+
+def _gopt_class(pkg: str):
+    return importlib.import_module(f"{pkg}.core.gopt").GOpt
 
 
 def _knows(base):
@@ -108,12 +116,12 @@ def _apply_mix(ms, base, n=6):
     return new
 
 
-def overlay_parity(make_gopt) -> list:
+def overlay_parity(make_gopt, pkg: str = "repro_torch") -> list:
     """With a live overlay (inserts and tombstones), ``(got, want)`` row
     lists of three queries: ``make_gopt(store)`` on the mutable store
-    against the port's numpy spec on a frozen deep copy."""
-    from repro_torch.core.gopt import GOpt
-    base, ms = _mutable()
+    against ``pkg``'s numpy spec on a frozen deep copy."""
+    GOpt = _gopt_class(pkg)
+    base, ms = _mutable(pkg)
     _apply_mix(ms, base)
     frozen = copy.deepcopy(ms)
     gopt, oracle = make_gopt(ms), GOpt(frozen, backend="numpy")
@@ -121,12 +129,12 @@ def overlay_parity(make_gopt) -> list:
             for q in (QK, Q2HOP, QPROPS)]
 
 
-def snapshot_isolation(make_gopt) -> list:
+def snapshot_isolation(make_gopt, pkg: str = "repro_torch") -> list:
     """A query pinned at snapshot S answers as-of S while inserts and
-    deletes land: ``(got, want)`` row lists per snapshot, ``want`` from the
-    port's numpy spec on a deep copy taken at S."""
-    from repro_torch.core.gopt import GOpt
-    base, ms = _mutable()
+    deletes land: ``(got, want)`` row lists per snapshot, ``want`` from
+    ``pkg``'s numpy spec on a deep copy taken at S."""
+    GOpt = _gopt_class(pkg)
+    base, ms = _mutable(pkg)
     kt = _knows(base)
     csr = base.out_csr[kt]
     off = base.v_offset["PERSON"]
@@ -195,7 +203,10 @@ def _appendix(world: int) -> dict:
 
 
 def _devices2() -> dict:
-    """A world of 4 pinned to 2 shards: ranks 0-1 answer, 2-3 refuse."""
+    """A world of 4 pinned to 2 shards: ranks 0-1 answer, 2-3 refuse.
+    Then ranks 0-1 release the set: its subgroup goes, the default group
+    stays."""
+    import torch.distributed as dist
     from repro_torch.core.gopt import GOpt
     base, ms = _mutable()
     try:
@@ -203,9 +214,21 @@ def _devices2() -> dict:
     except ValueError as exc:
         return {"refused": str(exc)}
     ops = gopt.spec.operators(base)
-    return {"n_shards": ops.n_shards, "spec": gopt.spec.name,
-            "rows": rows(gopt.run(Q2HOP)[0]),
-            "numpy_rows": rows(GOpt(base, backend="numpy").run(Q2HOP)[0])}
+    out = {"n_shards": ops.n_shards, "spec": gopt.spec.name,
+           "rows": rows(gopt.run(Q2HOP)[0]),
+           "numpy_rows": rows(GOpt(base, backend="numpy").run(Q2HOP)[0]),
+           "subgroup": ops.group is not dist.group.WORLD}
+    group = ops.group
+    gopt.spec.release(base)
+    out["released"] = (gopt.spec.name not in base._physical_ops_cache
+                       and not ops._blocks)
+    out["default_alive"] = dist.is_initialized()
+    try:
+        dist.get_backend(group)     # raises once the group is destroyed
+        out["subgroup_alive"] = True
+    except (ValueError, KeyError, RuntimeError):
+        out["subgroup_alive"] = False
+    return out
 
 
 def _stall(world: int) -> None:

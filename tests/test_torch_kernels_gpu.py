@@ -910,13 +910,16 @@ def test_sharded_gopt_on_the_card_matches_torch(card):
     on cuda and to the numpy spec, every expand's collectives recorded."""
     import torch.distributed as dist
     from repro_torch.graphdb.ldbc import generate_ldbc
+    from repro_torch.graphdb.sharded_backend import sharded_spec
     store = generate_ldbc(sf=0.1, seed=7)
     before = dict(kernels.LAUNCHES)
+    had_group = dist.is_initialized()
     try:
         _sharded_on_the_card(store, before)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        # the blocks, and the one-rank NCCL group if the set created it
+        sharded_spec(1).release(store)
+    assert dist.is_initialized() == had_group
 
 
 def _sharded_on_the_card(store, before):

@@ -2,39 +2,47 @@
 twin of ``tests/test_sharded.py``.
 
 In process, in a one-rank gloo group on the CPU (the backend creates it):
-operator conformance with the collectives recorded, Appendix-A rows equal
-to the port's ``numpy`` spec, the exchange ledger equal to the reference's
+operator conformance with the collectives recorded, Appendix-A and tail
+rows equal to the port's and the reference's ``numpy`` specs, rows and the
+exchange ledger equal to the reference's sharded backend
 (``GOpt(..., backend="sharded", devices=1)``, pinned because another
 module may fake an 8-device mesh in the same process) query by query —
 keys, calls and elements —, the blow-up guard, the ``devices=`` /
 ``device=`` spec pinning, the cost model's exchange term, the PROFILE
-exchange section, the streamed generator on the sharded spec, and the
-rank-local K1 probe of a partition summing to the probe of the whole CSR.
+exchange section, the streamed generator on the sharded spec, the
+rank-local K1 probe of a partition summing to the probe of the whole CSR,
+and ``PhysicalSpec.release``.
 
 In spawned gloo worlds of 2 and 4 ranks (``tests/_sharded_world.py``, one
-spawn a world, a deadline that kills a hung world): the same five queries
-give rows identical (value and order) to the ``numpy`` spec on every rank,
-with no mid-plan device->host copy; the ledger is the one-rank ledger plus
-one ``all_gather:expand_replicate`` per reduce-scattered expand column and
-the tail's gathers; a rank holds only its blocks (no whole-CSR twin, block
-bytes within 1/S of the CSR's plus the block's padding); a world of 4
-pinned to 2 shards answers on ranks 0-1 and refuses on 2-3; and, at S=2,
-the delta store's overlay parity and snapshot isolation (the twins of
-``tests/test_delta.py``'s sharded cases; the S=1 ones are in
-``test_torch_delta.py``).  Tolerance: exact equality everywhere."""
+spawn a world, a deadline that kills a hung world): the same queries give
+rows identical (value and order) to the port's ``numpy`` spec on every
+rank and to the reference's ``numpy`` spec on the same store built in the
+parent, with no mid-plan device->host copy; the ledger is the one-rank
+ledger plus one ``all_gather:expand_replicate`` per reduce-scattered
+expand column and the tail's gathers; a rank holds only its blocks (no
+whole-CSR twin, block bytes within 1/S of the CSR's plus the block's
+padding); a world of 4 pinned to 2 shards answers on ranks 0-1, refuses
+on 2-3, and its release destroys the subgroup only; and, at S=2, the
+delta store's overlay parity and snapshot isolation, held to the
+reference too (the twins of ``tests/test_delta.py``'s sharded cases; the
+S=1 ones are in ``test_torch_delta.py``).  Tolerance: exact equality
+everywhere."""
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import _sharded_world as W
 from benchmarks import queries as Q
 from repro.core.gopt import GOpt as RefGOpt
+from repro.graphdb.ldbc import generate_ldbc as ref_generate_ldbc
 from repro_torch.core.cardinality import CardEstimator
 from repro_torch.core.cbo import GraphOptimizer
 from repro_torch.core.gopt import GOpt
 from repro_torch.core.physical_spec import (TransferStats, _conf_csr,
                                             get_spec, validate_operator_set)
-from repro_torch.graphdb.ldbc import generate_ldbc, generate_ldbc_streamed
+from repro_torch.graphdb.ldbc import (generate_ldbc, generate_ldbc_streamed,
+                                      generate_motivating)
 from repro_torch.graphdb.partition import partition_csr
 from repro_torch.graphdb.sharded_backend import (ShardedOperators,
                                                  block_probe, sharded_spec,
@@ -46,6 +54,7 @@ from repro_torch.kernels.wcoj_intersect.ref import wcoj_intersect_ref
 
 PARITY = W.parity_queries()
 NAMES = [p[0] for p in PARITY]
+TAIL_NAMES = [q[0] for q in W.TAIL_QUERIES]
 TAIL_GATHERS = {"join", "combine_keys", "order", "distinct", "group_keys"}
 
 
@@ -80,6 +89,19 @@ def _fresh_ops(store):
     return ShardedOperators(store, devices=1, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def ref_sharded(small_ldbc):
+    # one device: another module may fake an 8-device mesh in this process
+    return RefGOpt(small_ldbc, backend="sharded", devices=1)
+
+
+def _ref_numpy(ref_gopt, text, params):
+    """The reference's ``numpy`` spec on the plan the reference optimises
+    for its sharded spec (the port's sharded plans are those plans)."""
+    opt = ref_gopt.optimize(text, params, backend="sharded")
+    return ref_gopt.execute(opt, backend="numpy")[0]
+
+
 # ------------------------------------------------------------- conformance
 
 def test_sharded_conformance(port_small):
@@ -96,11 +118,13 @@ def test_sharded_conformance(port_small):
 # ------------------------------------------------- end-to-end query parity
 
 @pytest.mark.parametrize("name,text,params", PARITY, ids=NAMES)
-def test_sharded_appendix_parity(sharded_gopt, name, text, params):
+def test_sharded_appendix_parity(sharded_gopt, gopt_small, name, text,
+                                 params):
     opt = sharded_gopt.optimize(text, params)
     ref, _ = sharded_gopt.execute(opt, backend="numpy")
     tbl, stats = sharded_gopt.execute(opt)
     _table_eq(tbl, ref, name)
+    _table_eq(tbl, _ref_numpy(gopt_small, text, params), f"{name} (ref)")
     # the distributed residency contract: collectives recorded, zero
     # mid-plan host transfers, one host gather at delivery
     assert stats.exchanges, "no collective exchanges recorded"
@@ -109,27 +133,39 @@ def test_sharded_appendix_parity(sharded_gopt, name, text, params):
         assert stats.transfers.get("deliver:d2h", {}).get("calls", 0) > 0
 
 
-@pytest.mark.parametrize("name,text,params", W.TAIL_QUERIES,
-                         ids=[q[0] for q in W.TAIL_QUERIES])
-def test_sharded_tail_equals_numpy(sharded_gopt, name, text, params):
-    """Every aggregate, DISTINCT and a two-key ORDER BY at one shard."""
+@pytest.mark.parametrize("name,text,params", W.TAIL_QUERIES, ids=TAIL_NAMES)
+def test_sharded_tail_equals_numpy(sharded_gopt, gopt_small, name, text,
+                                   params):
+    """Every aggregate, DISTINCT and a two-key ORDER BY at one shard, equal
+    to the port's and the reference's ``numpy`` specs."""
     opt = sharded_gopt.optimize(text, params)
     tbl, stats = sharded_gopt.execute(opt)
     _table_eq(tbl, sharded_gopt.execute(opt, backend="numpy")[0], name)
+    _table_eq(tbl, _ref_numpy(gopt_small, text, params), f"{name} (ref)")
     assert tbl.nrows > 1
     assert TransferStats.mid_plan_d2h(stats.transfers) == 0
 
 
-@pytest.mark.parametrize("name,text,params", PARITY, ids=NAMES)
-def test_sharded_ledger_equals_reference(small_ldbc, sharded_gopt, name,
-                                         text, params):
-    """Per query, the port's exchange summary equals the reference's at
-    one shard: the same collectives, calls and elements."""
-    ref = RefGOpt(small_ldbc, backend="sharded", devices=1)
-    want_tbl, want = ref.run(text, params)
+@pytest.mark.parametrize("name,text,params", PARITY + W.TAIL_QUERIES,
+                         ids=NAMES + TAIL_NAMES)
+def test_sharded_ledger_equals_reference(ref_sharded, gopt_small,
+                                         sharded_gopt, name, text, params):
+    """Per query, the port's rows and exchange summary equal the reference
+    sharded backend's at one shard: the same collectives, calls and
+    elements, and every column value for value.  The reference sums AVG
+    in float32 where the port sums in float64, so a floating column is
+    held to the reference's ``numpy`` spec instead."""
+    want_tbl, want = ref_sharded.run(text, params)
     got_tbl, got = sharded_gopt.run(text, params)
-    assert got_tbl.nrows == want_tbl.nrows
     assert got.exchanges == want.exchanges
+    assert got_tbl.nrows == want_tbl.nrows
+    assert set(got_tbl.cols) == set(want_tbl.cols)
+    exact = _ref_numpy(gopt_small, text, params)
+    for k in got_tbl.cols:
+        x = np.asarray(got_tbl.cols[k])
+        y = np.asarray((exact if x.dtype.kind == "f" else want_tbl).cols[k])
+        assert x.dtype == y.dtype, f"{name}/{k}: {x.dtype} != {y.dtype}"
+        np.testing.assert_array_equal(x, y, err_msg=f"{name}/{k}")
 
 
 def test_sharded_expand_records_frontier_exchange(sharded_gopt):
@@ -215,6 +251,25 @@ def test_sharded_without_a_card_raises(port_small):
             GOpt(port_small, backend="sharded", **kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedOperators(port_small)
+
+
+def test_release_drops_the_set_and_only_its_own_group():
+    """``PhysicalSpec.release`` takes the set out of its store's cache,
+    drops its blocks, and destroys the default group only if the set
+    created it."""
+    store = generate_motivating(n_person=30, n_product=10, n_place=4)
+    had_group = dist.is_initialized()
+    spec = sharded_spec(1, "cpu")
+    ops = spec.operators(store)
+    assert (ops._own_group is not None) == (not had_group)
+    tbl, _ = GOpt(store, backend="sharded", devices=1, device="cpu").run(
+        W.Q2HOP)
+    assert ops._blocks and tbl.nrows
+    spec.release(store)
+    assert spec.name not in store._physical_ops_cache and not ops._blocks
+    assert dist.is_initialized() == had_group
+    # the next call builds a fresh set (and group, if it went)
+    assert spec.operators(store) is not ops
 
 
 # ------------------------------------------------------------- cost model
@@ -319,6 +374,26 @@ def world4(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def ref_world_cols():
+    """The reference's ``numpy`` spec on the store the worlds build, from
+    the reference's own generator with the same seed, on the plans the
+    reference optimises for its sharded spec."""
+    ref = RefGOpt(ref_generate_ldbc(sf=0.05))
+    return {name: W.table_cols(_ref_numpy(ref, text, params))
+            for name, text, params in PARITY + W.TAIL_QUERIES}
+
+
+@pytest.fixture(scope="module")
+def ref_delta():
+    """The delta scenarios of the S=2 world on the reference's store, held
+    to the reference's ``numpy`` spec."""
+    def make(store):
+        return RefGOpt(store, backend="numpy")
+    return {"overlay": W.overlay_parity(make, pkg="repro"),
+            "snapshot": W.snapshot_isolation(make, pkg="repro")}
+
+
+@pytest.fixture(scope="module")
 def one_rank_ledgers():
     """The five queries' ledgers at S=1 on the store the worlds build."""
     gopt = GOpt(generate_ldbc(sf=0.05), backend="sharded", devices=1,
@@ -347,6 +422,17 @@ def test_world_rows_equal_numpy_on_every_rank(request, world, name):
         _cols_eq(q["cols"], first["cols"], f"rank {res['rank']} vs 0")
         assert q["mid_plan_d2h"] == 0
         assert q["deliver_calls"] > 0 or q["nrows"] == 0
+
+
+@pytest.mark.parametrize("name", NAMES + TAIL_NAMES)
+@pytest.mark.parametrize("world", [2, 4])
+def test_world_rows_equal_reference(request, ref_world_cols, world, name):
+    """Every rank's rows equal the reference's ``numpy`` spec on the same
+    store: the all-gathers, reduce-scatter chunks and distributed
+    ``group_reduce`` partials checked against the reference package."""
+    for res in request.getfixturevalue(f"world{world}"):
+        _cols_eq(res["appendix"]["queries"][name]["cols"],
+                 ref_world_cols[name], f"rank {res['rank']} vs reference")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -385,22 +471,27 @@ def test_world_of_4_pinned_to_2_shards(world4):
         if res["rank"] < 2:
             assert d["n_shards"] == 2 and d["spec"] == "sharded[2,cpu]"
             assert d["rows"] == d["numpy_rows"] and d["rows"]
+            # its release destroys the subgroup it made, not the world
+            assert d["subgroup"] and d["released"]
+            assert d["default_alive"] and not d["subgroup_alive"]
         else:
             assert "outside the sharded backend's group" in d["refused"]
 
 
-def test_world_2_overlay_parity_vs_frozen_oracle(world2):
+def test_world_2_overlay_parity_vs_frozen_oracle(world2, ref_delta):
     for res in world2:
-        for got, want in res["delta"]["overlay"]:
-            assert got == want and got
+        for (got, want), (_, ref) in zip(res["delta"]["overlay"],
+                                         ref_delta["overlay"], strict=True):
+            assert got == want == ref and got
 
 
-def test_world_2_snapshot_isolation_under_writes(world2):
+def test_world_2_snapshot_isolation_under_writes(world2, ref_delta):
     for res in world2:
         snaps = res["delta"]["snapshot"]
         assert len(snaps) == 5
-        for got, want in snaps:
-            assert got == want
+        for (got, want), (_, ref) in zip(snaps, ref_delta["snapshot"],
+                                         strict=True):
+            assert got == want == ref
         assert len({len(g) for g, _ in snaps}) > 1   # the writes showed
 
 
