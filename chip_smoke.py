@@ -134,7 +134,21 @@ Phases, each printing one JSON line:
              the yardstick; then ``serve_p99`` on the ``warp`` route,
              through a view of the same table one element past its base;
 19. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
-             same outputs on ``device="cuda"`` and ``device="cpu"``.
+             same outputs on ``device="cuda"`` and ``device="cpu"``;
+20. gnn    — the GNN family training on the card in float32 with TF32
+             off, each architecture through its full-size bundle (the
+             published widths; random weights from a seeded generator on
+             the card) and the reference's AdamW: GAT, SchNet, NequIP and
+             EquiformerV2 on ``full_graph_sm`` (Cora's sizes) and
+             ``molecule`` (128 graphs of 30 atoms), the first three also
+             on ``minibatch_lg`` (GAT's batches sampled afresh each step
+             by the port's fanout sampler, 1,024 seeds at 15-10, over a
+             232,965-node power-law graph; the others' from the bundle's
+             concrete batch); one warm-up and 5 timed steps each (CUDA
+             events), every loss and gradient norm finite, every step
+             moving the weights, the molecule losses equal to the port's
+             on the CPU, one profiled molecule step each; then a summary
+             with the runs the card does not take (``reduced``).
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -191,6 +205,29 @@ BAG_TOL = 1e-4
 PROBE_LIMIT_MS = {"synthetic_zipf": 1.1}
 PROBE_SEARCH_RATIO = {"glogue_most_rows": 1.05, "glogue_most_steps": 1.0}
 RECSYS_RTOL, RECSYS_ATOL = 1e-4, 1e-5
+# the GNN family: each architecture's full-size runs (the bundle's
+# published widths), train steps after one warm-up, the molecule loss
+# check's tolerance (card against the port on the CPU), and GAT's
+# sampled minibatch_lg: a Reddit-sized power-law graph, features, classes,
+# seeds and fanouts (the bundle's shape: 1024 seeds, fanout 15-10)
+GNN_RUNS = {"gat-cora": ("full_graph_sm", "molecule", "minibatch_lg"),
+            "schnet": ("full_graph_sm", "molecule", "minibatch_lg"),
+            "nequip": ("full_graph_sm", "molecule", "minibatch_lg"),
+            "equiformer-v2": ("full_graph_sm", "molecule")}
+GNN_STEPS = 5
+GNN_RTOL, GNN_ATOL = 1e-3, 1e-4
+SAMPLED = {"n_nodes": 232_965, "avg_degree": 50, "d_feat": 602,
+           "n_classes": 41, "seeds": 1024, "fanouts": [15, 10]}
+GNN_REDUCED = {
+    "ogb_products": "ogb_products is not run: GAT's second layer alone "
+    "materialises [61.9M, 8, 47] fp32 messages (~93 GB)",
+    "equiformer_minibatch": "equiformer-v2 on minibatch_lg is not run: "
+    "79.5 TFLOP a step by the reference's count, and 12 per-layer inputs "
+    "[169984, 128, 49] fp32 (4.3 GB each) kept across remat exceed the "
+    "card without the unported node_chunks path",
+    "sampled_degree": "GAT's sampled graph has average degree 50, not "
+    "Reddit's ~492 (past a degree of 15 the sampled shape depends only on "
+    "the fanout)"}
 # the update stream at sf=100: a round's writes (edge inserts, deletes of
 # base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
 # only), its reads, the chunks they interleave in, the reads a round held
@@ -2370,6 +2407,202 @@ def recsys_check() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------------- gnn
+
+def sampled_graph():
+    """GAT's ``minibatch_lg`` source, as ``examples/gnn_sampling.py``
+    builds it at the bundle's size: a power-law graph of 232,965 nodes,
+    seeded float32 features, and labels that carry a signal (the argmax of
+    the first 41 features)."""
+    import numpy as np
+    from repro_torch.graphdb.sampler import random_power_law_graph
+    t0 = time.perf_counter()
+    csr = random_power_law_graph(SAMPLED["n_nodes"],
+                                 avg_degree=SAMPLED["avg_degree"], seed=SEED)
+    rng = np.random.default_rng(SEED)
+    feats = rng.standard_normal((SAMPLED["n_nodes"], SAMPLED["d_feat"]),
+                                dtype=np.float32)
+    labels = feats[:, :SAMPLED["n_classes"]].argmax(axis=1).astype(np.int32)
+    return {"csr": csr, "feats": feats, "labels": labels, "rng": rng,
+            "build_s": time.perf_counter() - t0,
+            "csr_edges": int(csr.indptr[-1])}
+
+
+def sample_batch(src: dict, max_nodes: int, max_edges: int) -> tuple:
+    """One fresh fanout sample as a host batch: the sampler's padded
+    arrays, self-loops in the free edge slots, the sampled nodes' features
+    and labels (zeros and -1 past them).  Returns (batch, n_nodes,
+    n_edges, self_loops)."""
+    import numpy as np
+    from repro_torch.graphdb.sampler import sample_fanout
+    seeds = src["rng"].choice(SAMPLED["n_nodes"], size=SAMPLED["seeds"],
+                              replace=False)
+    nodes, edges, n_n, n_e = sample_fanout(
+        src["csr"], seeds, fanouts=SAMPLED["fanouts"], rng=src["rng"],
+        max_nodes=max_nodes, max_edges=max_edges)
+    self_n = min(n_n, max_edges - n_e)
+    edges[0, n_e:n_e + self_n] = np.arange(self_n)
+    edges[1, n_e:n_e + self_n] = np.arange(self_n)
+    feat = np.zeros((max_nodes, SAMPLED["d_feat"]), np.float32)
+    labels = np.full(max_nodes, -1, np.int32)
+    feat[:n_n] = src["feats"][nodes[:n_n]]
+    labels[:n_n] = src["labels"][nodes[:n_n]]
+    return ({"node_feat": feat, "edges": edges, "labels": labels}, n_n, n_e,
+            self_n)
+
+
+def to_card(batch: dict) -> tuple[dict, float]:
+    """A host batch on the card, and the copy's host-clock ms."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def gnn_run(arch: str, shape: str, sampled: dict | None) -> dict:
+    """One architecture on one shape through its full-size bundle: weights
+    from a seeded generator on the card, the reference's AdamW, one
+    warm-up and ``GNN_STEPS`` timed train steps (CUDA events).  On
+    ``molecule`` the first forward loss is held against the port on the
+    CPU (the weights copied there before the first step)."""
+    import importlib
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.train import optimizer as opt
+    bundle = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_")).bundle()
+    cfg, mod = bundle.model_cfg(shape), bundle.module
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mod.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    ost = opt.init(bundle.adam_cfg(), model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    on_host = None
+    if shape == "molecule":
+        on_host = type(model)(cfg, "cpu")
+        on_host.load_state_dict(model.state_dict())
+    dims = bundle.shapes[shape].dims
+    sample_ms, copy_ms, counts = [], [], []
+    if sampled is None:
+        host = bundle.host_batch(shape, SEED)
+        batch, ms = to_card(host)
+        copy_ms.append(ms)
+    init_s = time.perf_counter() - t0
+    step = bundle.make_step(shape)
+    kernels.reset_launches()
+    times, losses, norms, moved = [], [], [], []
+    for i in range(1 + GNN_STEPS):
+        if sampled is not None:
+            t = time.perf_counter()
+            host, n_n, n_e, loops = sample_batch(
+                sampled, bundle._pad512(dims["n_nodes"]),
+                bundle._pad512(dims["n_edges"]))
+            sample_ms.append((time.perf_counter() - t) * 1e3)
+            require(n_n <= dims["n_nodes"] and n_e <= dims["n_edges"],
+                    f"gnn {arch} {shape}: a sample of {n_n} nodes and "
+                    f"{n_e} edges exceeds the shape")
+            counts.append({"n_nodes": n_n, "n_edges": n_e,
+                           "self_loops": loops})
+            batch, ms = to_card(host)
+            copy_ms.append(ms)
+        before = [p.detach().clone() for p in model.parameters()]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        model, ost, m = step(model, ost, batch)
+        b.record()
+        b.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        moved.append(sum(not torch.equal(p.detach(), q)
+                         for p, q in zip(model.parameters(), before)))
+        del before
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"gnn {arch} {shape}: non-finite loss {losses} or grad norm "
+            f"{norms}")
+    require(all(n > 0 for n in moved),
+            f"gnn {arch} {shape}: a step left every parameter as it was "
+            f"({moved} tensors moved)")
+    flops = bundle.model_flops(shape)
+    med = statistics.median(times)
+    rec = {"phase": "gnn", "arch": arch, "shape": shape,
+           "dtype": str(cfg.dtype), "params": n_params,
+           "n_nodes": int(batch["labels" if "labels" in batch
+                                else "graph_ids"].shape[0]),
+           "n_edges": int(batch["edges"].shape[1]),
+           "steps": GNN_STEPS, "step_ms": times, "step_ms_median": med,
+           "step_ms_p90": float(np.percentile(times, 90)),
+           "loss": losses, "grad_norm": norms, "tensors_moved": moved,
+           "max_memory_allocated": peak,
+           "reference_model_flops": flops,
+           "tflops_per_s": flops / (med * 1e-3) / 1e12,
+           "init_s": init_s, "launches": launches,
+           "reduced": ([GNN_REDUCED["sampled_degree"]]
+                       if sampled is not None else [])}
+    if sampled is not None:
+        rec.update(sampled=counts, host_sample_ms=sample_ms,
+                   host_to_device_ms=copy_ms)
+    else:
+        rec["host_to_device_ms"] = copy_ms[0]
+    if on_host is not None:
+        t = time.perf_counter()
+        with torch.no_grad():
+            want = float(mod.loss_fn(on_host, {
+                k: torch.as_tensor(v) for k, v in host.items()}, cfg)[0])
+        err = abs(losses[0] - want)
+        require(err <= GNN_ATOL + GNN_RTOL * abs(want),
+                f"gnn {arch} {shape}: first loss {losses[0]} on cuda, "
+                f"{want} on cpu")
+        rec["cpu_check"] = {"loss_cuda": losses[0], "loss_cpu": want,
+                            "abs_err": err, "rtol": GNN_RTOL,
+                            "atol": GNN_ATOL,
+                            "cpu_s": time.perf_counter() - t}
+        rec["profiled"] = profile_step(step, model, ost, batch)
+    del model, ost, batch, on_host
+    return rec
+
+
+def gnn_path() -> dict:
+    """Every run of ``GNN_RUNS`` (TF32 off), each emitted as it ends;
+    returns a summary record with the cuts."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    src = sampled_graph()
+    graph = {"n_nodes": SAMPLED["n_nodes"], "csr_edges": src["csr_edges"],
+             "avg_degree": SAMPLED["avg_degree"], "build_s": src["build_s"]}
+    recs = []
+    for arch, shapes in GNN_RUNS.items():
+        for shape in shapes:
+            use = src if (arch, shape) == ("gat-cora", "minibatch_lg") \
+                else None
+            recs.append(gnn_run(arch, shape, use))
+            emit(recs[-1])
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "phase": "gnn", "runs": len(recs),
+        "reduced": list(GNN_REDUCED.values()),
+        "sampled_graph": graph,
+        "summary": {f"{r['arch']}/{r['shape']}": {
+            "step_ms_median": r["step_ms_median"],
+            "max_memory_allocated": r["max_memory_allocated"],
+            "tflops_per_s": r["tflops_per_s"]} for r in recs},
+        "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------ report
 
 def kernel_entry(name: str, source: str, replaces: str, heaviest: dict,
@@ -2516,6 +2749,8 @@ def run() -> int:
     del bags
     torch.cuda.empty_cache()
     emit(recsys_check())
+
+    emit(gnn_path())
 
     # the kernels line reports the heaviest captured call of each kernel
     emit({"kernels": [

@@ -1,6 +1,8 @@
 """The shape record of the reference's ``configs/base.py``: one named input
 shape of a model (the rest of that module, ``ArchBundle`` and its mesh
-helpers, belongs to the dry-run and launch tooling, not yet ported)."""
+helpers, belongs to the dry-run and launch tooling, not yet ported).  The
+GNN family's bundle, without its mesh members, is
+``configs/gnn_common.py::GNNBundle``."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,0 +1,132 @@
+"""AdamW, the port of ``src/repro/train/optimizer.py``: decoupled weight
+decay, global-norm clipping, linear warmup then cosine decay, and the
+optional int8 error-feedback gradient compression.
+
+Same arithmetic, step for step, as the reference's pytree functions, over
+a list of parameters and the list of their gradients: the gradients are
+cast to fp32, optionally sent through the int8 round trip (the residual
+carried to the next step), clipped by their global norm; ``step + 1``
+feeds the schedule and the bias corrections; ``delta = mhat / (sqrt(vhat)
++ eps) + wd * p``.  Everything stays on the parameters' device (no host
+read).  ``update`` writes the new parameters and moments in place, where
+the reference returns new trees.  ``torch.optim.AdamW`` is not this
+function: it has no clipping, no schedule and no compression.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor          # int32 scalar
+    mu: list
+    nu: list
+    ef_error: list  # error-feedback residual (scalar zeros when compression off)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+    compress_grads: bool = False   # int8 error-feedback compression
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_frac (``step``: an integer
+    tensor; the result is fp32)."""
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def init(cfg: AdamWConfig, params) -> AdamState:
+    params = list(params)
+    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in params]
+    ef = ([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in params] if cfg.compress_grads
+          else [torch.zeros((), dtype=torch.float32, device=p.device)
+                for p in params])
+    dev = params[0].device if params else None
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                     mu=zeros,
+                     nu=[torch.zeros_like(z) for z in zeros],
+                     ef_error=ef)
+
+
+def _quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def compress_decompress(g: torch.Tensor, err: torch.Tensor):
+    """Error-feedback int8 round trip: returns (g_hat, new_err). The int8
+    tensor is what would cross a data-parallel all-reduce."""
+    g_comp = g + err
+    q, scale = _quantize_int8(g_comp)
+    g_hat = q.to(torch.float32) * scale
+    return g_hat, g_comp - g_hat
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (each tensor's norm
+    from one multi-tensor launch)."""
+    norms = torch._foreach_norm([x.to(torch.float32) for x in tensors])
+    return torch.sqrt(torch.sum(torch.square(torch.stack(norms))))
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, grads, state: AdamState, params):
+    """One step over ``params`` (a list of tensors, written in place) and
+    ``grads`` (the same order).  Returns (params, new_state, metrics).
+    Each line is one multi-tensor (``torch._foreach_*``) launch over all
+    the tensors, with the reference's operations in its order."""
+    params = list(params)
+    grads = [g.to(torch.float32) for g in grads]
+    if cfg.compress_grads:
+        pairs = [compress_decompress(g, e)
+                 for g, e in zip(grads, state.ef_error)]
+        grads = [p[0] for p in pairs]
+        new_err = [p[1] for p in pairs]
+    else:
+        new_err = state.ef_error
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    grads = torch._foreach_mul(grads, scale)
+
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    b1c = 1 - cfg.b1 ** step.to(torch.float32)
+    b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    mu, nu = state.mu, state.nu
+    torch._foreach_mul_(mu, cfg.b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - cfg.b1))
+    torch._foreach_mul_(nu, cfg.b2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - cfg.b2))
+    mhat = torch._foreach_div(mu, b1c)
+    vhat = torch._foreach_div(nu, b2c)
+    delta = torch._foreach_div(
+        mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
+    torch._foreach_add_(delta, torch._foreach_mul(
+        [p.to(torch.float32) for p in params], cfg.weight_decay))
+    torch._foreach_sub_(params, torch._foreach_mul(
+        [d.to(p.dtype) for d, p in zip(delta, params)], lr))
+    return params, AdamState(step, mu, nu, new_err), {
+        "grad_norm": gnorm, "lr": lr}

@@ -47,7 +47,8 @@ def test_scan_covers_the_port():
     assert {"torch_backend.py", "engine.py", "gopt.py", "ops.py",
             "transformer.py", "chip_smoke.py", "recsys.py", "wide_deep.py",
             "base.py", "torchops.py", "gremlin.py", "partition.py",
-            "sharded_backend.py"} <= names
+            "sharded_backend.py", "irreps.py", "gat.py", "equiformer_v2.py",
+            "sampler.py", "optimizer.py", "gnn_common.py"} <= names
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     assert {p.parent.name for p in PORT_FILES if p.parent.parent == kernels
             and p.name == "ops.py"} == {"wcoj_intersect", "flash_attention",
@@ -67,6 +68,17 @@ def test_gopt_without_device_raises_without_a_card(small_ldbc):
         GOpt(store, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(store)
+    # the GNN family: its bundles' concrete state and every init_params
+    from repro_torch.configs import gat_cora
+    from repro_torch.models.gnn import equiformer_v2, gat, nequip, schnet
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gat_cora.bundle(smoke=True).make_concrete("molecule")
+    gen = torch.Generator()
+    for mod, cfg in ((gat, gat.GATConfig()), (schnet, schnet.SchNetConfig()),
+                     (nequip, nequip.NequIPConfig()),
+                     (equiformer_v2, equiformer_v2.EquiformerV2Config())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.init_params(cfg, gen)
 
 
 def test_smoke_query_copy_matches_the_benchmark_set():

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version (K1's
-two routes on CSRs where its walk is likely to go wrong); the LM and Wide
-& Deep on cuda against the CPU; fused graph chains (K1 probes inside) on
-cuda against the CPU.  Every test here is marked ``gpu``
+two routes on CSRs where its walk is likely to go wrong); the LM, Wide
+& Deep and the GNN smoke bundles on cuda against the CPU; fused graph
+chains (K1 probes inside) on cuda against the CPU.  Every test here is
+marked ``gpu``
 and skips itself without a card.  The file imports neither jax nor the
 reference package, so it runs on a machine that has only PyTorch:
 
@@ -953,3 +954,31 @@ def _sharded_on_the_card(store, before):
         "wcoj_intersect", 0)
     assert k1 > 0 and kernels.LAUNCHES.get("wcoj_intersect.fence", 0) \
         - before.get("wcoj_intersect.fence", 0) == k1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gat_cora", "schnet", "nequip",
+                                  "equiformer_v2"])
+@pytest.mark.parametrize("shape", ["full_graph_sm", "molecule"])
+def test_gnn_smoke_bundle_on_the_card_matches_the_cpu(card, arch, shape):
+    """Each GNN smoke bundle in float32 (TF32 off): the forward on cuda
+    equals the CPU's on the same weights (rtol 1e-3), and one train step
+    on cuda moves the weights with a finite loss and gradient norm."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pb = importlib.import_module(f"repro_torch.configs.{arch}").bundle(
+        smoke=True)
+    cfg = pb.model_cfg(shape)
+    model, ost, batch = pb.make_concrete(shape, seed=0, device=card)
+    on_host = type(model)(cfg, "cpu")
+    on_host.load_state_dict(model.state_dict())
+    host = {k: torch.as_tensor(v) for k, v in pb.host_batch(shape, 0).items()}
+    with torch.no_grad():
+        a = pb.module.forward(model, batch, cfg).cpu()
+        b = pb.module.forward(on_host, host, cfg)
+    torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+    before = [p.detach().clone() for p in model.parameters()]
+    model, ost, m = pb.make_step(shape)(model, ost, batch)
+    assert bool(torch.isfinite(m["loss"])) and bool(
+        torch.isfinite(m["grad_norm"]))
+    assert any(not torch.equal(p, q)
+               for p, q in zip(model.parameters(), before))
