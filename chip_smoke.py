@@ -148,7 +148,42 @@ Phases, each printing one JSON line:
              events), every loss and gradient norm finite, every step
              moving the weights, the molecule losses equal to the port's
              on the CPU, one profiled molecule step each; then a summary
-             with the runs the card does not take (``reduced``).
+             with the runs the card does not take (``reduced``);
+21. lm_train — LM training through ``repro_torch.launch.train.train`` in
+             float32 with TF32 off, into a temporary checkpoint directory:
+             ``lm100m`` (12 layers, d_model 768, vocab 32,768) at batch 8 x
+             seq 1,024 for 20 steps (checkpoints at 10 and 20), then
+             ``train(steps=30)`` on the same directory, which must resume
+             at step 20 with a first loss equal to the card's loss of step
+             20's batch on the restored weights, then a run with
+             ``should_preempt`` set; ``lm-moe`` at batch 16 x seq 1,024 for
+             10 steps.  Gates: every loss and gradient norm finite, the
+             mean of the last 5 losses below that of the first 5, no
+             retry, step 0's loss and global gradient norm at batch 1 x
+             seq 256 equal to the port's on the CPU on the same weights
+             (rtol 2e-3 / atol 2e-4), and exact launch counts a step: K2's
+             forward L x 2 (the layer's recompute under
+             ``torch.utils.checkpoint`` launches it again), all on
+             ``rows``; K2's backward (``flash_attention_bwd``) L; K3 (MoE)
+             L x 3 x 2 + L x 6 (forward, recompute, dx and dw), all on
+             ``simt``.  Then 5 steps timed with CUDA events, peak memory,
+             TFLOP/s of ``train_flops``, one profiled step, and the
+             checkpoint's save and restore seconds;
+22. kernel — the attention backward (``attention_bwd``) on layer 0's
+             operands captured in a timed ``lm100m`` step, its output
+             gradient scaled to unit RMS (the backward is linear in it;
+             each gradient's largest value must reach 10x the tolerance),
+             against autograd
+             through the plain version on the card (2e-3), timed as the
+             other phases, beside its operations bound and the backward of
+             SDPA (``is_causal``) on the same inputs; then the same
+             operands cast to bf16 (the forward on ``tc``), held at 2e-2;
+23. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
+             w2 products captured the same way (``dy`` at unit RMS):
+             both gradients against
+             autograd through the plain version (1e-4), and the three
+             products (forward, dx = dy w^T, dw = x^T dy) each timed
+             beside ``torch.bmm`` and its bound.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -228,6 +263,13 @@ GNN_REDUCED = {
     "sampled_degree": "GAT's sampled graph has average degree 50, not "
     "Reddit's ~492 (past a degree of 15 the sampled shape depends only on "
     "the fanout)"}
+# LM training: each preset's (batch, seq, steps) and, for lm100m, the
+# resumed run's total steps; the CPU parity shape (batch, seq); steps timed
+# with CUDA events after one warm-up
+LM_RUNS = {"lm100m": (8, 1024, 20), "lm-moe": (16, 1024, 10)}
+LM_RESUME_STEPS = {"lm100m": 30}
+LM_CHECK_SHAPE = (1, 256)
+LM_TIMED_STEPS = 5
 # the update stream at sf=100: a round's writes (edge inserts, deletes of
 # base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
 # only), its reads, the chunks they interleave in, the reads a round held
@@ -1917,15 +1959,17 @@ def profile_step(step, *args) -> dict:
             step(*args)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kinds = {"flash_attention": 0.0, "grouped_matmul": 0.0,
-                 "embedding_bag": 0.0, "matmul": 0.0, "other": 0.0}
+        kinds = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+                 "grouped_matmul": 0.0, "embedding_bag": 0.0, "matmul": 0.0,
+                 "other": 0.0}
         kernels, other, copies = 0, [], []
         for ev in prof.key_averages():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             kernels += ev.count
             name, ms = ev.key.lower(), ev.self_device_time_total / 1e3
-            kind = ("flash_attention" if "attn_" in name
+            kind = ("flash_attention_bwd" if "attn_bwd" in name
+                    else "flash_attention" if "attn_" in name
                     else "grouped_matmul" if "gmm_kernel" in name
                     else "embedding_bag" if "embedding_bag_kernel" in name
                     else "matmul" if any(s in name for s in (
@@ -1951,8 +1995,9 @@ def profile_step(step, *args) -> dict:
 
 
 def _verdict(label: str, got, want, tol: float) -> dict:
-    """The reference's allclose (|a - b| <= tol + tol*|b|) and the max
-    abs error."""
+    """The reference's allclose (|a - b| <= tol + tol*|b|), the max abs
+    error and the largest plain value (which the tolerance is read
+    against)."""
     import torch
     diff = (got.float() - want.float()).abs()
     limit = tol + tol * want.float().abs()
@@ -1961,7 +2006,28 @@ def _verdict(label: str, got, want, tol: float) -> dict:
     require(worst <= 1.0 and bool(torch.isfinite(got).all()),
             f"{label}: kernel differs from the plain version (max abs err "
             f"{err}, {worst:.3f} of the tolerance)")
-    return {"max_abs_err": err, "tol": tol, "worst_of_tol": worst}
+    return {"max_abs_err": err, "tol": tol, "worst_of_tol": worst,
+            "want_max_abs": float(want.float().abs().max())
+            if want.numel() else 0.0}
+
+
+def _unit_rms(t):
+    """``t`` scaled to unit RMS (in fp32 arithmetic, kept in its dtype)."""
+    t32 = t.float()
+    return (t32 / t32.square().mean().sqrt()).to(t.dtype)
+
+
+def _grad_verdicts(label: str, names: str, got, want, tol: float) -> list:
+    """One verdict a gradient, each required to hold values of at least 10x
+    the tolerance: a kernel that returned zeros, or gradients off by a
+    large factor, fails."""
+    verdicts = [_verdict(f"{label} d{n}", a, b, tol)
+                for n, a, b in zip(names, got, want)]
+    for n, r in zip(names, verdicts):
+        require(r["want_max_abs"] >= 10 * tol,
+                f"{label} d{n}: the largest plain gradient "
+                f"{r['want_max_abs']} is below 10x the tolerance {tol}")
+    return verdicts
 
 
 def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
@@ -2603,6 +2669,433 @@ def gnn_path() -> dict:
         "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------- lm train
+
+def lm_launches_per_step(cfg) -> dict:
+    """Kernel launches one train step makes, from the code: K2's forward
+    once a layer and once more in the layer's recompute (remat), its
+    backward once a layer; K3's three expert products in the forward and
+    the recompute, and two more launches (dx, dw) for each in the
+    backward."""
+    fwd = 1 + int(cfg.remat)
+    gmm = (3 * fwd + 6) * cfg.n_layers if cfg.moe else 0
+    return {"flash_attention": fwd * cfg.n_layers,
+            "flash_attention.rows": fwd * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "grouped_matmul": gmm, "grouped_matmul.simt": gmm}
+
+
+def lm_launch_gate(label: str, launches: dict, cfg, steps: int) -> None:
+    want = {k: v * steps for k, v in lm_launches_per_step(cfg).items() if v}
+    require(launches == want,
+            f"lm_train {label}: launches {launches}, expected {want} "
+            f"({steps} steps)")
+
+
+def lm_losses(label: str, result, steps: int) -> tuple[list, list]:
+    require(result.retries == 0 and not result.preempted,
+            f"lm_train {label}: {result.retries} retries, preempted "
+            f"{result.preempted}")
+    require([s for s, _ in result.metrics_history]
+            == list(range(result.final_step - steps + 1,
+                          result.final_step + 1)),
+            f"lm_train {label}: history steps "
+            f"{[s for s, _ in result.metrics_history]}")
+    losses = [m["loss"] for _, m in result.metrics_history]
+    norms = [m["grad_norm"] for _, m in result.metrics_history]
+    import numpy as np
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"lm_train {label}: non-finite loss {losses} or grad norm "
+            f"{norms}")
+    return losses, norms
+
+
+def lm_cpu_parity(cfg, model) -> dict:
+    """Step 0's loss and global gradient norm at ``LM_CHECK_SHAPE`` on the
+    card and on the CPU, on the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, batch_at
+    t0 = time.perf_counter()
+    b, s = LM_CHECK_SHAPE
+    toks = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                               global_batch=b), 0)["tokens"]
+    host = tfm.Transformer(cfg, "cpu")
+    host.load_state_dict(model.state_dict())
+    got = {}
+    for dev, m in (("cuda", model), ("cpu", host)):
+        params = [p.requires_grad_() for p in m.parameters()]
+        loss, _ = tfm.loss_fn(m, {"tokens": torch.as_tensor(
+            toks, device=dev)}, cfg)
+        grads = torch.autograd.grad(loss, params)
+        got[dev] = (float(loss.detach()), float(opt.global_norm(grads)))
+        for p in params:
+            p.requires_grad_(False)
+        del grads, loss
+    del host
+    for i, what in enumerate(("loss", "grad_norm")):
+        a, want = got["cuda"][i], got["cpu"][i]
+        require(np.isfinite(a) and abs(a - want) <= CHECK_ATOL
+                + CHECK_RTOL * abs(want),
+                f"lm_train {cfg.name}: step 0 {what} {a} on cuda, {want} "
+                f"on cpu")
+    return {"loss_cuda": got["cuda"][0], "loss_cpu": got["cpu"][0],
+            "grad_norm_cuda": got["cuda"][1], "grad_norm_cpu": got["cpu"][1],
+            "shape": list(LM_CHECK_SHAPE), "rtol": CHECK_RTOL,
+            "atol": CHECK_ATOL, "seconds": time.perf_counter() - t0}
+
+
+def lm_timed_steps(cfg, model, batch: int, seq: int) -> tuple[dict, dict]:
+    """One warm-up train step that captures layer 0's kernel operands
+    (attention: q, k, v and its output gradient; MoE: the w1 and w2
+    products with theirs, through gradient hooks), ``LM_TIMED_STEPS``
+    steps timed with CUDA events, and one profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, batch_at
+    acfg = opt.AdamWConfig(total_steps=LM_TIMED_STEPS + 3)
+    ost = opt.init(acfg, model.parameters())
+    step = tfm.make_train_step(cfg, acfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+
+    def on_card(i):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in batch_at(dcfg, i).items()}
+
+    captured = {}
+    mlp0 = model.layers[0].mlp
+    real_fa, real_gmm = tfm.flash_attention, tfm.grouped_matmul
+
+    def keep_grad(key, out):
+        out.register_hook(lambda g: captured[key].append(
+            g.detach().clone(memory_format=torch.contiguous_format)))
+
+    def fa(q, k, v, q_start, kv_len, **kw):
+        out = real_fa(q, k, v, q_start, kv_len, **kw)
+        if "attention" not in captured and out.requires_grad:
+            captured["attention"] = [t.detach().clone() for t in (q, k, v)] \
+                + [q_start, kv_len, kw]
+            keep_grad("attention", out)
+        return out
+
+    def gmm(x, w):
+        out = real_gmm(x, w)
+        which = {mlp0.w1.data_ptr(): "w1",
+                 mlp0.w2.data_ptr(): "w2"}.get(w.data_ptr())
+        if which and which not in captured and out.requires_grad:
+            captured[which] = [x.detach().clone(), w.detach()]
+            keep_grad(which, out)
+        return out
+
+    tfm.flash_attention, tfm.grouped_matmul = fa, gmm
+    try:
+        model, ost, _ = step(model, ost, on_card(0))
+        torch.cuda.synchronize()
+    finally:
+        tfm.flash_attention, tfm.grouped_matmul = real_fa, real_gmm
+    times = []
+    for i in range(1, 1 + LM_TIMED_STEPS):
+        b = on_card(i)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        model, ost, m = step(model, ost, b)
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e))
+        require(bool(torch.isfinite(m["loss"])), "lm_train: timed loss")
+    med = statistics.median(times)
+    flops = cfg.train_flops(batch, seq)
+    rec = {"step_ms": times, "step_ms_median": med,
+           "step_ms_p90": float(np.percentile(times, 90)),
+           "train_flops": flops,
+           "tflops_per_s": flops / (med * 1e-3) / 1e12,
+           "profiled": profile_step(step, model, ost, on_card(99))}
+    return rec, captured
+
+
+def lm_run(preset: str, batch: int, seq: int, steps: int,
+           resume: int | None) -> tuple[dict, dict]:
+    """One preset through ``train`` (and, with ``resume``, the resumed and
+    the preempted runs); returns its record and the captured operands."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.train import PRESETS, train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig, batch_at
+    cfg = PRESETS[preset]
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix=f"lm_train_{preset}_"))
+    kw = dict(batch=batch, seq=seq, ckpt_dir=str(root / "ckpt"),
+              log_fn=lambda *a: None, log_every=1)
+    rec = {"phase": "lm_train", "preset": preset, "dtype": str(cfg.dtype),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "batch": batch, "seq": seq, "tokens_per_step": batch * seq,
+           "launches_per_step": lm_launches_per_step(cfg)}
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train(preset, steps, **kw)
+        torch.cuda.synchronize()
+        rec["train_s"] = time.perf_counter() - t0
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        rec["launches"] = dict(kernels.LAUNCHES)
+        require(first.final_step == steps,
+                f"lm_train {preset}: stopped at {first.final_step}")
+        losses, norms = lm_losses(preset, first, steps)
+        lm_launch_gate(preset, rec["launches"], cfg, steps)
+        head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        require(tail < head, f"lm_train {preset}: the last 5 losses average "
+                             f"{tail}, the first 5 {head}")
+        rec.update(loss=losses, grad_norm=norms, loss_first5=head,
+                   loss_last5=tail)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = tfm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda")
+        if resume:
+            # the card's loss of batch `steps` on the restored weights
+            fresh = tfm.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(SEED + 1),
+                device="cuda")
+            ost = opt.init(opt.AdamWConfig(), fresh.parameters())
+            ck = CheckpointManager(kw["ckpt_dir"], keep=2, async_write=False)
+            t = time.perf_counter()
+            at, _ = ck.restore_latest((fresh, ost))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            require(at == steps, f"lm_train {preset}: latest checkpoint "
+                                 f"{at}, expected {steps}")
+            dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                              global_batch=batch)
+            with torch.no_grad():
+                want = float(tfm.loss_fn(fresh, {
+                    k: torch.as_tensor(v, device="cuda")
+                    for k, v in batch_at(dcfg, steps).items()}, cfg)[0])
+            t = time.perf_counter()
+            CheckpointManager(str(root / "timed"), keep=1,
+                              async_write=False).save(steps, (fresh, ost))
+            save_s = time.perf_counter() - t
+            del fresh, ost
+            gc.collect()
+            torch.cuda.empty_cache()
+            kernels.reset_launches()
+            again = train(preset, resume, **kw)
+            launches = dict(kernels.LAUNCHES)
+            require(again.final_step == resume,
+                    f"lm_train {preset}: the resumed run stopped at "
+                    f"{again.final_step}")
+            r_losses, _ = lm_losses(f"{preset} resumed", again,
+                                    resume - steps)
+            require(again.metrics_history[0][0] == steps + 1
+                    and r_losses[0] == want,
+                    f"lm_train {preset}: resumed at "
+                    f"{again.metrics_history[0][0] - 1} with loss "
+                    f"{r_losses[0]}; step {steps}'s batch on the restored "
+                    f"weights gives {want}")
+            lm_launch_gate(f"{preset} resumed", launches, cfg,
+                           resume - steps)
+            rec["resumed_launches"] = launches
+            kernels.reset_launches()
+            stop = train(preset, resume + 10, should_preempt=lambda: True,
+                         **kw)
+            require(stop.preempted and stop.final_step == resume
+                    and not kernels.LAUNCHES,
+                    f"lm_train {preset}: preempted {stop.preempted} at "
+                    f"{stop.final_step}")
+            rec.update(resumed={"from": steps, "final_step":
+                                again.final_step, "loss": r_losses,
+                                "first_loss": r_losses[0],
+                                "restored_loss": want},
+                       preempted_at=stop.final_step,
+                       checkpoint={"restore_s": restore_s,
+                                   "save_s": save_s,
+                                   "bytes": sum(
+                                       f.stat().st_size for f in
+                                       (root / "timed").rglob("*.npz"))})
+        rec["cpu_check"] = lm_cpu_parity(cfg, model)
+        timed, captured = lm_timed_steps(cfg, model, batch, seq)
+        rec.update(timed)
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec, captured
+
+
+def lm_train_path() -> tuple[list[dict], dict]:
+    """Both presets' runs (TF32 off), each emitted as it ends; returns the
+    records and the operands captured for the backward kernel phases."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs, captured = [], {}
+    for preset, (batch, seq, steps) in LM_RUNS.items():
+        rec, calls = lm_run(preset, batch, seq, steps,
+                            LM_RESUME_STEPS.get(preset))
+        emit(rec)
+        recs.append(rec)
+        captured.update({f"{preset}_{k}": v for k, v in calls.items()})
+    return recs, captured
+
+
+def _bwd_bound(nbytes: int, ops: float, bf16: bool) -> tuple[float, str]:
+    rate = BF16_OPS_PER_S if bf16 else SCALAR_OPS_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
+                        dout, tol: float, reps: int = REPS) -> dict:
+    """K2's backward kernel against autograd through the plain version on
+    one captured call: the Function's gradients (forward on its route,
+    backward counted once), the bound (10 hd flops an admissible pair: the
+    five products), the plain backward and SDPA's causal backward.  The
+    backward is linear in ``dout``; the captured one (of a loss averaged
+    over every token) is scaled to unit RMS, so the gradients are O(1)
+    and the tolerance is far below them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, route)
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                         per_batch)
+    B, Sq, Kh, G, hd = q.shape
+    Skv = k.shape[1]
+    dout = _unit_rms(dout)
+    starts = per_batch(q_start, B, q.device)
+    lens = per_batch(kv_len, B, q.device)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = kernels.LAUNCHES.get("flash_attention_bwd", 0)
+    out = flash_attention(*leaves, starts, lens, **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES.get("flash_attention_bwd", 0) == before + 1,
+            f"{label}: no flash_attention_bwd launch")
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_ref = flash_attention_ref(*plain, starts, lens, **kw)
+    want = torch.autograd.grad(out_ref, plain, dout, retain_graph=True)
+    verdicts = _grad_verdicts(label, "qkv", got, want, tol)
+    rec = dict(max(verdicts, key=lambda r: r["worst_of_tol"]))
+    q_pos = starts[:, None] + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    mask = (kv_pos[None, None] <= q_pos[:, :, None]) & (
+        kv_pos[None, None] < lens[:, None, None])
+    if kw.get("window") is not None:
+        mask &= kv_pos[None, None] > q_pos[:, :, None] - kw["window"]
+    pairs = int(mask.sum()) * Kh * G
+    esize = q.element_size()
+    # q, dout and dq; k, v, dk and dv over the keys in use
+    nbytes = esize * (3 * q.numel() + 4 * int(lens.sum()) * Kh * hd)
+    bound_ms, bound_by = _bwd_bound(nbytes, 10 * hd * pairs,
+                                    q.dtype == torch.bfloat16)
+    call = (q, k, v, dout, starts, lens)
+    kernel_ms = cuda_ms(lambda: flash_attention_bwd(*call, **kw), reps,
+                        batch=ATTN_BATCH, queued=True)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_ref, plain, dout, retain_graph=True), max(3, reps // 4),
+        warmup=1)
+    # yardstick: SDPA's causal backward on the same inputs ([B, H, S, hd])
+    library_ms = None
+    if (int(starts.min()) == int(starts.max()) == 0 and Sq == Skv
+            and int(lens.min()) == Skv and kw.get("window") is None
+            and kw.get("softcap") is None):
+        heads = [t.detach().permute(0, 2, 3, 1, 4).reshape(B, Kh * G, Sq, hd)
+                 .requires_grad_() for t in (q,)] + [
+            t.detach().permute(0, 2, 1, 3).contiguous().requires_grad_()
+            for t in (k, v)]
+        d_heads = dout.permute(0, 2, 3, 1, 4).reshape(B, Kh * G, Sq, hd)
+        out_lib = F.scaled_dot_product_attention(*heads, is_causal=True,
+                                                 enable_gqa=G > 1)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out_lib, heads, d_heads, retain_graph=True), reps,
+            batch=ATTN_BATCH, queued=True)
+    rec.update({"phase": "kernel", "name": "flash_attention_bwd",
+                "input": label, "forward_route": route(q, k, v),
+                "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Kh": Kh, "G": G,
+                          "hd": hd},
+                "dtype": str(q.dtype), "admissible_pairs": pairs,
+                "bytes": nbytes, "verdicts": verdicts,
+                "kernel_ms": kernel_ms,
+                "kernel_ms_single": cuda_ms(
+                    lambda: flash_attention_bwd(*call, **kw), reps),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "pct_of_bound": 100 * bound_ms / kernel_ms,
+                "kernel_over_library": (kernel_ms / library_ms
+                                        if library_ms else None)})
+    return rec
+
+
+def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
+                  reps: int = REPS) -> dict:
+    """K3's backward on one captured expert product: the Function's dx and
+    dw (three launches, all on ``simt``) against autograd through the
+    plain version, and each of the three products (forward, dx = dy w^T,
+    dw = x^T dy) timed beside ``torch.bmm`` and its bound.  ``dy`` is
+    scaled to unit RMS, as ``dout`` in ``attention_bwd_phase``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    dy = _unit_rms(dy)
+    before = {n: kernels.LAUNCHES.get(n, 0)
+              for n in ("grouped_matmul", "grouped_matmul.simt")}
+    xg, wg = (t.detach().clone().requires_grad_() for t in (x, w))
+    got = torch.autograd.grad(grouped_matmul(xg, wg), (xg, wg), dy)
+    torch.cuda.synchronize()
+    for n, c in before.items():
+        require(kernels.LAUNCHES.get(n, 0) == c + 3,
+                f"{label}: {kernels.LAUNCHES.get(n, 0) - c} {n} launches, "
+                f"expected 3")
+    xr, wr = (t.detach().clone().requires_grad_() for t in (x, w))
+    want = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr), dy)
+    verdicts = _grad_verdicts(label, "xw", got, want, tol)
+    rec = dict(max(verdicts, key=lambda r: r["worst_of_tol"]))
+    wt = w.transpose(1, 2).contiguous()
+    xt = x.transpose(1, 2).contiguous()
+    products = {}
+    for name, (a, b) in (("fwd", (x, w)), ("dx", (dy, wt)),
+                         ("dw", (xt, dy))):
+        require(route(a, b) == "simt", f"{label} {name}: route "
+                                       f"{route(a, b)}")
+        G, M, K = a.shape
+        N = b.shape[2]
+        bound_ms, bound_by = _bwd_bound(
+            a.element_size() * (a.numel() + b.numel() + G * M * N),
+            2 * G * M * K * N, False)
+        kernel_ms = cuda_ms(lambda: grouped_matmul(a, b), reps,
+                            batch=GMM_BATCH)
+        library_ms = cuda_ms(lambda: torch.bmm(a, b), reps, batch=GMM_BATCH)
+        products[name] = {
+            "shape": {"G": G, "M": M, "K": K, "N": N},
+            "kernel_ms": kernel_ms,
+            "kernel_ms_single": cuda_ms(lambda: grouped_matmul(a, b), reps),
+            "plain_ms": cuda_ms(lambda: grouped_matmul_ref(a, b),
+                                max(3, reps // 4), warmup=1),
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "pct_of_bound": 100 * bound_ms / kernel_ms,
+            "kernel_over_library": kernel_ms / library_ms}
+    rec.update({"phase": "kernel", "name": "grouped_matmul_bwd",
+                "input": label, "dtype": str(x.dtype), "route": "simt",
+                "verdicts": verdicts, "products": products})
+    return rec
+
+
 # ------------------------------------------------------------------ report
 
 def kernel_entry(name: str, source: str, replaces: str, heaviest: dict,
@@ -2642,7 +3135,7 @@ def run() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    require(len(built) == 4, f"expected 4 kernel sources, found "
+    require(len(built) == 5, f"expected 5 kernel sources, found "
                              f"{sorted(s.name for s in built)}")
     for stem in ("embedding_bag", "wcoj_intersect"):
         spills = [ln for src, b in built.items() if src.stem == stem
@@ -2752,6 +3245,35 @@ def run() -> int:
 
     emit(gnn_path())
 
+    lm_recs, lm_calls = lm_train_path()
+    q, k, v, q_start, kv_len, kw, dout = lm_calls["lm100m_attention"]
+    B = q.shape[0]
+    starts, lens = (torch.full((B,), n, dtype=torch.int32, device="cuda")
+                    for n in (q_start, kv_len))
+    # K2's forward on its rows route at the training shape
+    fa_train = attention_phase("lm100m_layer0_fp32", q, k, v, starts, lens,
+                               kw, "rows", tol=ATTENTION_FP32_TOL)
+    emit(fa_train)
+    bwd_phases = [
+        attention_bwd_phase("lm100m_layer0", q, k, v, q_start, kv_len, kw,
+                            dout, ATTENTION_FP32_TOL),
+        attention_bwd_phase("lm100m_layer0_bf16", q.bfloat16(), k.bfloat16(),
+                            v.bfloat16(), q_start, kv_len, kw,
+                            dout.bfloat16(), ATTENTION_TOL)]
+    for rec in bwd_phases:
+        emit(rec)
+    del q, k, v, dout, starts, lens
+    gmm_bwd = [gmm_bwd_phase(f"lm-moe_layer0_{w}", *lm_calls[f"lm-moe_{w}"])
+               for w in ("w1", "w2")]
+    for rec in gmm_bwd:
+        emit(rec)
+    del lm_calls
+    lm_launches = {}
+    for rec in lm_recs:
+        for part in (rec["launches"], rec.get("resumed_launches", {})):
+            for name, n in part.items():
+                lm_launches[name] = lm_launches.get(name, 0) + n
+
     # the kernels line reports the heaviest captured call of each kernel
     emit({"kernels": [
         kernel_entry(
@@ -2768,14 +3290,23 @@ def run() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:69",
-            fa_phases[0], fa_phases,
-            serve_rec["launches"].get("flash_attention", 0)),
+            fa_phases[0], fa_phases + [fa_train],
+            serve_rec["launches"].get("flash_attention", 0)
+            + lm_launches.get("flash_attention", 0)),
         kernel_entry(
             "grouped_matmul",
             "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
             "src/repro/kernels/grouped_matmul/grouped_matmul.py:38",
-            gmm_phases[0], gmm_phases,
-            serve_rec["launches"].get("grouped_matmul", 0)),
+            gmm_phases[0], gmm_phases + gmm_bwd,
+            serve_rec["launches"].get("grouped_matmul", 0)
+            + lm_launches.get("grouped_matmul", 0)),
+        kernel_entry(
+            "flash_attention_bwd",
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd.cu",
+            "none (backward of K2; the reference differentiates its jnp "
+            "path)", bwd_phases[0], bwd_phases,
+            lm_launches.get("flash_attention_bwd", 0)),
         kernel_entry(
             "embedding_bag",
             "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",

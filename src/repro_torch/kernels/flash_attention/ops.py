@@ -14,6 +14,14 @@ plain version in ``ref.py``.
 Launch counts (``repro_torch.kernels.LAUNCHES``): ``flash_attention`` for
 every call, and ``flash_attention.tc``, ``.split`` or ``.rows`` for the
 route taken (one count per call, though ``split`` runs two kernels).
+
+Under autograd (grad enabled and q, k or v requiring it) the call goes
+through ``FlashAttentionFn``: the forward is the call above, and the
+backward is ``flash_attention_bwd``, which launches the three kernels of
+``csrc/flash_attention_bwd.cu`` (the log-sum-exp, output and D rows, dq,
+then dk and dv; counted once, as ``flash_attention_bwd``) on a CUDA device, or
+raises; on the CPU it is autograd through the plain version
+(``ref.flash_attention_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -23,11 +31,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, count_launch
-from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
-                                                     per_batch)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref, flash_attention_ref, per_batch)
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_NAME = "flash_attention_bwd"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_WINDOW = 1 << 30
@@ -87,17 +97,51 @@ def _check(q, k, v):
                          f"{k.device}, {v.device}")
 
 
+def _check_options(window, softcap):
+    if window is not None and window < 1:
+        raise ValueError(f"{NAME}: window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{NAME}: softcap must be > 0, got {softcap}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_start, kv_len, *, window: int | None = None,
                     softcap: float | None = None) -> torch.Tensor:
     """q ``[B, Sq, Kh, G, hd]``; k, v ``[B, Skv, Kh, hd]`` (a cache, read in
     place); ``q_start``, ``kv_len`` ints or ``[B]`` int tensors.  Returns
-    ``[B, Sq, Kh, G, hd]`` in q.dtype."""
+    ``[B, Sq, Kh, G, hd]`` in q.dtype, differentiable in q, k and v."""
     _check(q, k, v)
-    if window is not None and window < 1:
-        raise ValueError(f"{NAME}: window must be >= 1, got {window}")
-    if softcap is not None and not softcap > 0:
-        raise ValueError(f"{NAME}: softcap must be > 0, got {softcap}")
+    _check_options(window, softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        B = q.shape[0]
+        return FlashAttentionFn.apply(
+            q, k, v, per_batch(q_start, B, q.device),
+            per_batch(kv_len, B, q.device), window, softcap)
+    return _forward(q, k, v, q_start, kv_len, window, softcap)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with its gradient from ``flash_attention_bwd``
+    (``q_start`` and ``kv_len`` as ``[B]`` int tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_start, kv_len, window, softcap):
+        out = _forward(q, k, v, q_start, kv_len, window, softcap)
+        ctx.save_for_backward(q, k, v, q_start, kv_len)
+        ctx.options = {"window": window, "softcap": softcap}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_start, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, q_start, kv_len,
+                                         **ctx.options)
+        return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, q_start, kv_len, window, softcap) -> torch.Tensor:
+    """One forward launch on the route ``route`` picks (or the plain
+    version on the CPU); the operands are checked."""
     device = q.device
     if device.type == "cpu":
         return flash_attention_ref(q, k, v, q_start, kv_len, window=window,
@@ -148,3 +192,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     count_launch(NAME)
     count_launch(f"{NAME}.{which}")
     return out
+
+
+def _bwd_kernel_fn():
+    fn = _build.load(BWD_SOURCE).flash_attention_bwd
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, dout, q_start, kv_len, dq, dk, dv, lse, dsum, then
+        # B, Sq, Skv, Kh, G, hd, window, softcap, dtype
+        fn.argtypes = [p] * 11 + [i] * 7 + [f, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, q_start, kv_len, *,
+                        window: int | None = None,
+                        softcap: float | None = None):
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention`` at (q, k, v)
+    for the output gradient ``dout`` (``[B, Sq, Kh, G, hd]``), in q.dtype.
+    The kernels recompute the output in fp32 rather than read the
+    forward's, which bf16 rounds.  On a CUDA device it launches the
+    backward kernels on the current stream (built with nvcc at first use),
+    or raises; on the CPU it runs the plain version."""
+    _check(q, k, v)
+    _check_options(window, softcap)
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"{BWD_NAME}: dout {tuple(dout.shape)} on "
+                         f"{dout.device} does not fit q {tuple(q.shape)}")
+    device = q.device
+    if device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout.to(q.dtype), q_start,
+                                       kv_len, window=window,
+                                       softcap=softcap)
+    if device.type != "cuda":
+        raise ValueError(f"{BWD_NAME}: no kernel for device {device}")
+    B, Sq, Kh, G, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{BWD_NAME}: head_dim {hd} is not one of "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{BWD_NAME}: dtype {q.dtype} is not float32 or "
+                        f"bfloat16")
+    # autograd's output gradient may be strided or of another dtype: the
+    # kernels read contiguous rows of q's type
+    dout = dout.to(q.dtype).contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"{BWD_NAME}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{BWD_NAME}: {name} is not 16-byte aligned")
+    starts = per_batch(q_start, B, device).contiguous()
+    lens = per_batch(kv_len, B, device).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    rows = B * Kh * Sq * G
+    scratch = torch.empty(2 * rows, dtype=torch.float32, device=device)
+    fn = _bwd_kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 starts.data_ptr(), lens.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 scratch.data_ptr(), scratch[rows:].data_ptr(), B, Sq,
+                 k.shape[1], Kh, G, hd,
+                 _NO_WINDOW if window is None else int(window),
+                 0.0 if softcap is None else float(softcap),
+                 _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_NAME}: kernel launch failed with CUDA "
+                           f"error {err}")
+    count_launch(BWD_NAME)
+    return dq, dk, dv

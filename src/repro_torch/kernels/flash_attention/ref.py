@@ -55,3 +55,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
     out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor, q_start,
+                            kv_len, *, window: int | None = None,
+                            softcap: float | None = None):
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention_ref`` at
+    (q, k, v) for the output gradient ``dout``: autograd through the plain
+    forward, recomputed here.  A query with no admissible key gets zero
+    gradients (its output is the constant 0)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, q_start, kv_len, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, leaves, dout)

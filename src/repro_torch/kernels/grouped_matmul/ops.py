@@ -9,6 +9,13 @@ kernel (``"tc"``: TMA and wgmma) for bf16 whose rows TMA can address, the
 scalar kernel (``"simt"``) for the rest.  On the CPU it runs the plain
 version in ``ref.py``.
 
+Under autograd (grad enabled and an operand that requires it) the call
+goes through ``GroupedMatmulFn``, whose backward is two more launches of
+the same kernel: ``dx = grouped_matmul(dy, w^T)`` and ``dw =
+grouped_matmul(x^T, dy)``, the transposes made contiguous first (the
+kernel takes no strides), each routed by ``route`` as any call is; on CPU
+tensors the same Function runs over the plain version.
+
 Launch counts (``repro_torch.kernels.LAUNCHES``): ``grouped_matmul`` for
 every launch, and ``grouped_matmul.tc`` or ``grouped_matmul.simt`` for the
 route taken.
@@ -55,7 +62,37 @@ def route(x: torch.Tensor, w: torch.Tensor) -> str:
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x ``[G, M, K]`` @ w ``[G, K, N]`` -> ``[G, M, N]`` in x.dtype."""
+    """x ``[G, M, K]`` @ w ``[G, K, N]`` -> ``[G, M, N]`` in x.dtype,
+    differentiable in both operands."""
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in (x, w)):
+        return GroupedMatmulFn.apply(x, w)
+    return _grouped_matmul(x, w)
+
+
+class GroupedMatmulFn(torch.autograd.Function):
+    """The grouped product with its gradients as two more grouped
+    products: ``dx = dy @ w^T`` and ``dw = x^T @ dy`` per group."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _grouped_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped_matmul(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = _grouped_matmul(x.transpose(1, 2).contiguous(), dy)
+        return dx, dw
+
+
+def _grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel (or the plain version on the CPU)."""
     if not (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)
             and x.dim() == 3 and w.dim() == 3):
         raise ValueError(f"{NAME}: x and w must be 3-D tensors")

@@ -85,5 +85,18 @@ def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE. logits ``[..., V]`` (any dtype, summed in fp32),
+    labels int ``[...]``; with ``mask``, the mean over its weights."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
 def count_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())

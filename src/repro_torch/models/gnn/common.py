@@ -9,9 +9,8 @@ the port lies on this path.
 Indices: ``safe_edges`` returns int64 ``src`` / ``dst`` (``scatter_reduce``
 and ``index_add_`` take int64), once per forward; the layers reuse them.
 The reference's ``shard_hint`` calls are left out (mesh placement is not
-ported).  ``make_train_step`` is the step every GNN module's
-``make_train_step`` returns: the loss's gradients by autograd, then the
-reference's AdamW (``repro_torch.train.optimizer``).
+ported).  Every GNN module's ``make_train_step`` returns the shared step of
+``repro_torch.train.step``.
 """
 from __future__ import annotations
 
@@ -20,7 +19,6 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import dense_init_
-from repro_torch.train import optimizer as opt
 
 # ------------------------------------------------------------- parameters
 
@@ -237,20 +235,3 @@ def graph_readout(h: torch.Tensor, batch: dict, n_graphs: int):
         return h.sum(dim=0)
     seg = torch.where(graph_ids >= 0, graph_ids, n_graphs).long()
     return segment_sum(h[:, 0], seg, n_graphs + 1)[:n_graphs]
-
-
-def make_train_step(loss_fn, cfg, adam_cfg):
-    """``train_step(model, opt_state, batch) -> (model, opt_state,
-    metrics)``: the gradients of ``loss_fn`` for every parameter, then one
-    AdamW update of the parameters in place."""
-
-    def train_step(model, opt_state, batch):
-        params = list(model.parameters())
-        loss, parts = loss_fn(model, batch, cfg)
-        grads = torch.autograd.grad(loss, params)
-        _, opt_state, om = opt.update(adam_cfg, grads, opt_state, params)
-        return model, opt_state, {"loss": loss.detach(),
-                                  **{k: v.detach() for k, v in parts.items()},
-                                  **om}
-
-    return train_step

@@ -40,9 +40,10 @@ from repro_torch.models.gnn.common import (ParamTree, edge_vectors,
                                            poly_cutoff, safe_edges,
                                            segment_softmax, segment_sum,
                                            take_rows)
-from repro_torch.models.gnn.common import make_train_step as _train_step
 from repro_torch.models.gnn.irreps import edge_wigner, irrep_slices
 from repro_torch.models.gnn.nequip import embed_scalars, gate, per_l_mix
+from repro_torch.train import optimizer as opt
+from repro_torch.train.step import make_train_step as _train_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,4 +283,5 @@ def loss_fn(model: EquiformerV2, batch: dict, cfg: EquiformerV2Config):
 
 
 def make_train_step(cfg: EquiformerV2Config, adam_cfg):
-    return _train_step(loss_fn, cfg, adam_cfg)
+    # the reference stacks the layers: one compression scale a stacked leaf
+    return _train_step(loss_fn, cfg, adam_cfg, groups=opt.stacked_leaves)

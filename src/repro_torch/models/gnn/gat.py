@@ -17,7 +17,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.gnn.common import (ParamTree, masked_nll, safe_edges,
                                            segment_softmax, segment_sum,
                                            take_rows)
-from repro_torch.models.gnn.common import make_train_step as _train_step
+from repro_torch.train.step import make_train_step as _train_step
 
 
 @dataclasses.dataclass(frozen=True)

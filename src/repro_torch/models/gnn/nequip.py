@@ -27,9 +27,9 @@ from repro_torch.models.gnn.common import (ParamTree, bessel_rbf,
                                            graph_readout, masked_nll,
                                            poly_cutoff, safe_edges,
                                            segment_sum, take_rows)
-from repro_torch.models.gnn.common import make_train_step as _train_step
 from repro_torch.models.gnn.irreps import (cg_tensor, irrep_slices,
                                            real_sph_harm)
+from repro_torch.train.step import make_train_step as _train_step
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,7 +19,7 @@ from repro_torch.models.gnn.common import (ParamTree, edge_vectors,
                                            graph_readout, masked_nll,
                                            poly_cutoff, safe_edges,
                                            segment_sum, take_rows)
-from repro_torch.models.gnn.common import make_train_step as _train_step
+from repro_torch.train.step import make_train_step as _train_step
 
 
 def ssp(x: torch.Tensor) -> torch.Tensor:

@@ -15,11 +15,16 @@ as the reference left them to XLA.  Layers run in a Python loop (the
 reference's ``lax.scan``).  The KV cache is updated in place.
 
 Parameters live in ``nn.Module``s that mirror the reference's tree
-(``params_from_reference`` copies one over): matmul weights in
-``cfg.dtype``, the router and the norm scales in fp32 (the reference's
-fp32 master copies, which it uses as fp32), so top-k routing sees the same
-fp32 logits in every compute dtype.  The modules serve: their parameters do
-not require gradients.
+(``params_from_reference`` copies one over, ``params_to_reference`` copies
+back): matmul weights in ``cfg.dtype``, the router and the norm scales in
+fp32 (the reference's fp32 master copies, which it uses as fp32), so top-k
+routing sees the same fp32 logits in every compute dtype.  Built for
+serving, their parameters do not require gradients; ``make_train_step``
+turns that on for the parameters it trains, and only for float32 configs
+(the reference trains fp32 master copies; the port keeps a bf16 config's
+matmul weights in bf16).  Training runs each layer under
+``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
+and differentiates through both kernels' ``autograd.Function``s.
 """
 from __future__ import annotations
 
@@ -30,11 +35,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
-from repro_torch.models.common import (apply_rope, dense_init, resolve_device,
-                                       rms_norm, rope_angles, softcap)
+from repro_torch.models.common import (apply_rope, cross_entropy,
+                                       dense_init, resolve_device, rms_norm,
+                                       rope_angles, softcap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +109,11 @@ class TransformerConfig:
         D, F_, L = self.d_model, self.d_ff, self.n_layers
         dead = L * (self.n_experts - self.top_k) * 3 * D * F_
         return self.param_count() - dead
+
+    def train_flops(self, batch: int, seq: int) -> float:
+        """6*N_active*D model flops (the reference's MODEL_FLOPS
+        convention)."""
+        return 6.0 * self.active_param_count() * batch * seq
 
     def decode_flops(self, batch: int, kv_len: int) -> float:
         """Per decode token: 2*N_active + attention reads."""
@@ -182,6 +194,25 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Layer(cfg, device)
                                     for _ in range(cfg.n_layers))
 
+    def reference_tree(self) -> dict:
+        """The parameters in the reference's tree: ``embed``, ``head``,
+        ``final_norm``, and under ``layers`` each leaf as the list of its
+        per-layer parameters (the reference stacks them on a leading
+        ``L`` axis)."""
+        def per_layer(get):
+            first = get(self.layers[0])
+            return {n: [get(layer)[n] for layer in self.layers]
+                    for n in first}
+
+        def own(module):
+            return dict(module.named_parameters(recurse=False))
+
+        return {"embed": self.embed, "head": self.head,
+                "final_norm": self.final_norm,
+                "layers": {"attn": per_layer(lambda m: own(m.attn)),
+                           "mlp": per_layer(lambda m: own(m.mlp)),
+                           **per_layer(own)}}
+
 
 # ============================================================== init
 
@@ -260,6 +291,25 @@ def params_from_reference(cfg: TransformerConfig, arrays: dict,
         put_all(layer.mlp, lay["mlp"], i)
         put_all(layer, norms, i)
     return model
+
+
+@torch.no_grad()
+def params_to_reference(model: Transformer, cfg: TransformerConfig) -> dict:
+    """The inverse of ``params_from_reference``: the model's parameters as
+    the reference's tree of float32 numpy arrays, each layer leaf stacked
+    on a leading ``L`` axis."""
+    if len(model.layers) != cfg.n_layers:
+        raise ValueError(f"the model has {len(model.layers)} layers, the "
+                         f"config {cfg.n_layers}")
+
+    def host(x):
+        if isinstance(x, list):
+            return np.stack([host(t) for t in x])
+        if isinstance(x, dict):
+            return {n: host(t) for n, t in x.items()}
+        return x.detach().float().cpu().numpy()
+
+    return host(model.reference_tree())
 
 
 # ============================================================== attention
@@ -369,7 +419,10 @@ def moe_mlp(x, mp: MLP, cfg: TransformerConfig):
                          device=dev).index_put_((dest,), sw * keep)[:-1]
     slot_valid = (slot_w > 0).to(dt)
 
-    buf = (xf[slot_token].to(dt) * slot_valid[:, None]).reshape(E, C, D)
+    # index_select, whose backward is an index_add_: advanced indexing's
+    # sorts the indices, and every empty slot points at token 0
+    buf = (xf.index_select(0, slot_token).to(dt)
+           * slot_valid[:, None]).reshape(E, C, D)
     w1, w3, w2 = mp.w1.to(dt), mp.w3.to(dt), mp.w2.to(dt)
     h = F.silu(grouped_matmul(buf, w1)) * grouped_matmul(buf, w3)
     eout = grouped_matmul(h, w2).reshape(E * C, D)
@@ -413,7 +466,7 @@ def forward(params: Transformer, tokens: torch.Tensor,
     B, S = tokens.shape
     dt = cfg.dtype
     dev = tokens.device
-    x = params.embed.to(dt)[tokens]
+    x = F.embedding(tokens, params.embed.to(dt))
     if cfg.name.startswith("gemma"):
         # the reference rounds the scale to the compute dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
@@ -425,11 +478,19 @@ def forward(params: Transformer, tokens: torch.Tensor,
     else:
         positions = (int(cache_index) + steps).expand(B, S)
     flags = cfg.is_local_flags()
+    # the reference's jax.checkpoint of each layer: the backward recomputes
+    # a layer's activations (and launches its kernels again)
+    remat = kv_caches is None and cfg.remat and torch.is_grad_enabled()
     auxs = []
     for i, layer in enumerate(params.layers):
-        kv = (None if kv_caches is None
-              else (kv_caches["k"][i], kv_caches["v"][i]))
-        x, aux = _layer(x, layer, cfg, positions, flags[i], kv, cache_index)
+        if remat:
+            x, aux = checkpoint(_layer, x, layer, cfg, positions, flags[i],
+                                use_reentrant=False)
+        else:
+            kv = (None if kv_caches is None
+                  else (kv_caches["k"][i], kv_caches["v"][i]))
+            x, aux = _layer(x, layer, cfg, positions, flags[i], kv,
+                            cache_index)
         auxs.append(aux)
     x = rms_norm(x, params.final_norm.float(),
                  zero_centered=cfg.zero_centered_norm)
@@ -438,6 +499,31 @@ def forward(params: Transformer, tokens: torch.Tensor,
 
 
 # ====================================================== entry points
+
+
+def loss_fn(model: Transformer, batch: dict, cfg: TransformerConfig):
+    """Next-token CE over ``batch["tokens"] [B, S]`` plus the weighted MoE
+    aux loss; returns (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    logits, _, aux = forward(model, tokens, cfg)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}
+
+
+def make_train_step(cfg: TransformerConfig, adam_cfg):
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``: ``repro_torch.train.step``'s step over ``loss_fn``, one
+    int8 scale a stacked layer leaf under compression.  Float32 configs
+    only."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step as train_step
+    if cfg.dtype != torch.float32:
+        raise ValueError(
+            f"make_train_step: {cfg.name} computes in {cfg.dtype}; the port "
+            "trains float32 configs only (it keeps a bf16 config's matmul "
+            "weights in bf16, where the reference trains fp32 master "
+            "copies)")
+    return train_step(loss_fn, cfg, adam_cfg, groups=opt.stacked_leaves)
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,

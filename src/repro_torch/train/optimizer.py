@@ -4,8 +4,9 @@ optional int8 error-feedback gradient compression.
 
 Same arithmetic, step for step, as the reference's pytree functions, over
 a list of parameters and the list of their gradients: the gradients are
-cast to fp32, optionally sent through the int8 round trip (the residual
-carried to the next step), clipped by their global norm; ``step + 1``
+cast to fp32, optionally sent through the int8 round trip (one scale per
+leaf of the reference's tree, ``groups``; the residual carried to the
+next step), clipped by their global norm; ``step + 1``
 feeds the schedule and the bias corrections; ``delta = mhat / (sqrt(vhat)
 + eps) + wd * p``.  Everything stays on the parameters' device (no host
 read).  ``update`` writes the new parameters and moments in place, where
@@ -68,8 +69,13 @@ def init(cfg: AdamWConfig, params) -> AdamState:
                      ef_error=ef)
 
 
-def _quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+def _quantize_int8(g: torch.Tensor, top: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes of ``g`` and their scale, ``top / 127`` (``top``: the
+    largest magnitude of ``g`` unless given)."""
+    if top is None:
+        top = torch.max(torch.abs(g))
+    scale = torch.clamp(top, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -77,10 +83,22 @@ def _quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def compress_decompress(g: torch.Tensor, err: torch.Tensor):
     """Error-feedback int8 round trip: returns (g_hat, new_err). The int8
     tensor is what would cross a data-parallel all-reduce."""
-    g_comp = g + err
-    q, scale = _quantize_int8(g_comp)
-    g_hat = q.to(torch.float32) * scale
-    return g_hat, g_comp - g_hat
+    (g_hat,), (new_err,) = compress_decompress_group([g], [err])
+    return g_hat, new_err
+
+
+def compress_decompress_group(gs: list, errs: list):
+    """``compress_decompress`` over tensors that are one leaf of the
+    reference's tree (a model's per-layer tensors of one stacked leaf):
+    one int8 scale, from the largest magnitude of all of them.  Returns
+    (g_hats, new_errs)."""
+    g_comp = [g + e for g, e in zip(gs, errs)]
+    top = torch.stack([torch.max(torch.abs(g)) for g in g_comp]).max()
+    g_hat = []
+    for g in g_comp:
+        q, scale = _quantize_int8(g, top)
+        g_hat.append(q.to(torch.float32) * scale)
+    return g_hat, [g - h for g, h in zip(g_comp, g_hat)]
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -90,19 +108,39 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.square(torch.stack(norms))))
 
 
+def stacked_leaves(model, name: str = "layers") -> list:
+    """Index groups of ``model.parameters()``, each one leaf of the
+    reference's tree, where the reference stacks the layers of the
+    ``ModuleList`` ``name`` on a leading axis: ``<name>.<i>.<rest>``
+    grouped by ``rest`` over the layers, every other parameter alone."""
+    groups: dict = {}
+    for i, (n, _) in enumerate(model.named_parameters()):
+        head, _, tail = n.partition(".")
+        key = ("stacked", tail.partition(".")[2]) if head == name else n
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: AdamState, params):
+def update(cfg: AdamWConfig, grads, state: AdamState, params,
+           groups: list | None = None):
     """One step over ``params`` (a list of tensors, written in place) and
     ``grads`` (the same order).  Returns (params, new_state, metrics).
     Each line is one multi-tensor (``torch._foreach_*``) launch over all
-    the tensors, with the reference's operations in its order."""
+    the tensors, with the reference's operations in its order.
+    ``groups`` (lists of indices into ``params``, each tensor in one)
+    names the tensors that are one leaf of the reference's tree, so that
+    compression quantizes each leaf with one scale as the reference does;
+    by default each tensor is its own leaf."""
     params = list(params)
     grads = [g.to(torch.float32) for g in grads]
     if cfg.compress_grads:
-        pairs = [compress_decompress(g, e)
-                 for g, e in zip(grads, state.ef_error)]
-        grads = [p[0] for p in pairs]
-        new_err = [p[1] for p in pairs]
+        grads, new_err = list(grads), list(state.ef_error)
+        for group in groups or [[i] for i in range(len(params))]:
+            hats, errs = compress_decompress_group(
+                [grads[i] for i in group], [new_err[i] for i in group])
+            for i, h, e in zip(group, hats, errs):
+                grads[i], new_err[i] = h, e
     else:
         new_err = state.ef_error
     gnorm = global_norm(grads)

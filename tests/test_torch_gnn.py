@@ -446,3 +446,23 @@ def test_equiformer_chunked_paths_are_refused():
     for c in (cfg, dataclasses.replace(cfg, edge_chunk=0, node_chunks=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             peq2.forward(model, b, c)
+
+
+def test_equiformer_compression_groups_are_the_reference_leaves():
+    """Under int8 compression each leaf of the reference's tree has one
+    scale.  EquiformerV2's layers are stacked there and unstacked here, so
+    its train step groups ``layers.<i>.<rest>`` by ``rest``: one group a
+    reference leaf, shape for shape (the per-tensor scale would round
+    each layer on its own)."""
+    jc, pc = _configs("equiformer_v2", "energy")
+    params = jeq2.init_params(jc, jax.random.PRNGKey(0))
+    model = peq2.params_from_reference(pc, jax.tree.map(np.asarray, params),
+                                       device="cpu")
+    ps = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    groups = opt.stacked_leaves(model)
+    assert sorted(i for g in groups for i in g) == list(range(len(ps)))
+    got = sorted(((len(g),) if names[g[0]].startswith("layers.") else ())
+                 + tuple(ps[g[0]].shape) for g in groups)
+    want = sorted(tuple(np.shape(x)) for x in jax.tree.leaves(params))
+    assert got == want

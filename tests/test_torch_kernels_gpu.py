@@ -982,3 +982,171 @@ def test_gnn_smoke_bundle_on_the_card_matches_the_cpu(card, arch, shape):
         torch.isfinite(m["grad_norm"]))
     assert any(not torch.equal(p, q)
                for p, q in zip(model.parameters(), before))
+
+
+# ------------------------------------------------ LM training: the backward
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    "prefill", "prefill_ints", "ragged", "chunk", "window_softcap",
+    "decode", "g4_hd32", "hd16", "hd128_g2", "keys_past_kv_len"])
+def test_attention_backward_kernel_matches_plain_version(card, case, dtype):
+    """``flash_attention_bwd`` (three kernels, counted once) against
+    autograd through the plain version: causal
+    prefill (q_start and kv_len as [B] tensors and as ints), a length not a
+    multiple of the 64-row tiles, a chunk at q_start > 0, a window with a
+    softcap, decode rows, G = 4, head dims 16, 32, 64 and 128, and a cache
+    longer than kv_len; 2e-3 in fp32, 2e-2 in bf16."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    g = torch.Generator(device=card).manual_seed(len(case))
+    B, Sq, Skv, K, G, hd = 2, 256, 256, 2, 1, 64
+    window, cap = None, None
+    q_start = torch.tensor([0, 0])
+    if case == "ragged":
+        Sq = Skv = 333
+    elif case == "chunk":
+        Sq, q_start = 40, torch.tensor([100, 216])
+    elif case == "window_softcap":
+        Sq = Skv = 300
+        window, cap = 70, 5.0
+    elif case == "decode":
+        Sq, q_start = 1, torch.tensor([17, 255])
+    elif case == "g4_hd32":
+        G, hd = 4, 32
+    elif case == "hd16":
+        hd = 16
+    elif case == "hd128_g2":
+        G, hd, Sq, Skv = 2, 128, 150, 150
+    elif case == "keys_past_kv_len":
+        Sq, Skv = 100, 300
+    kv_len = q_start + Sq
+    q = torch.randn(B, Sq, K, G, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    dout = torch.randn(B, Sq, K, G, hd, generator=g, device=card).to(dtype)
+    if case == "prefill_ints":
+        q_start, kv_len = 0, Sq
+    else:
+        q_start, kv_len = q_start.to(card), kv_len.to(card)
+    kw = {"window": window, "softcap": cap}
+    before = kernels.LAUNCHES.get("flash_attention_bwd", 0)
+    got = flash_attention_bwd(q, k, v, dout, q_start, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_ref(q, k, v, dout, q_start, kv_len, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    if case == "keys_past_kv_len":
+        assert not got[1][:, 200:].any() and not got[2][:, 200:].any()
+
+
+@pytest.mark.gpu
+def test_attention_function_runs_the_backward_kernel(card):
+    """Through autograd, a CUDA call runs the forward kernel and then the
+    backward kernel, never the plain version."""
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(1, 64, 2, 1, 32, generator=g, device=card,
+                    requires_grad=True)
+    k = torch.randn(1, 64, 2, 32, generator=g, device=card,
+                    requires_grad=True)
+    v = torch.randn(1, 64, 2, 32, generator=g, device=card,
+                    requires_grad=True)
+    before = dict(kernels.LAUNCHES)
+    out = flash_attention(q, k, v, 0, 64)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_attention.rows",
+                 "flash_attention_bwd"):
+        assert kernels.LAUNCHES[name] == before.get(name, 0) + 1, name
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    want = flash_attention_bwd_ref(q, k, v, 2 * out.detach(), 0, 64)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_attention_backward_raises_instead_of_falling_back(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    q = torch.zeros(1, 4, 2, 1, 24, device=card)
+    kv = torch.zeros(1, 4, 2, 24, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q, kv, kv, q, 0, 4)
+    q = torch.zeros(1, 4, 2, 1, 32, device=card).half()
+    kv = torch.zeros(1, 4, 2, 32, device=card).half()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_bwd(q, kv, kv, q, 0, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,M,K,N", [(8, 320, 256, 96), (3, 37, 65, 50),
+                                     (4, 640, 64, 128), (2, 1, 1, 1)])
+def test_grouped_matmul_backward_matches_plain_version(card, G, M, K, N,
+                                                        dtype):
+    """The Function's dx and dw: three launches of the kernel (the forward
+    and two backward products, each on the route ``route`` picks), against
+    autograd through the plain version."""
+    x, w = _gmm_operands(card, G, M, K, N, dtype)
+    dy = _gmm_operands(card, G, M, N, 1, dtype)[0]
+    before = kernels.LAUNCHES.get("grouped_matmul", 0)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = torch.autograd.grad(grouped_matmul(xg, wg), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_matmul"] == before + 3
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr), dy)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", [False, True])
+def test_lm_train_step_on_the_card_matches_the_cpu(card, moe):
+    """One float32 train step (TF32 off) of a small LM whose head dim the
+    kernels take (16): loss, gradient norm and updated weights equal the
+    CPU's on the same weights (rtol 2e-3 / atol 2e-4), with the launches
+    the code implies: K2 L x 2 forward (the remat recompute) on ``rows``,
+    L backward, K3 L x 12 (MoE) on ``simt``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = tfm.TransformerConfig(
+        name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab_size=97, moe=moe, n_experts=4 if moe else 0,
+        top_k=2 if moe else 0, dtype=torch.float32)
+    on_card = tfm.init_params(cfg, torch.Generator(card).manual_seed(0),
+                              device=card)
+    on_host = tfm.Transformer(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    toks = np.random.default_rng(0).integers(0, 97, (2, 80))
+    acfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = tfm.make_train_step(cfg, acfg)
+    out = {}
+    for dev, model in ((card, on_card), (torch.device("cpu"), on_host)):
+        kernels.reset_launches()
+        ost = opt.init(acfg, model.parameters())
+        model, ost, m = step(model, ost, {"tokens": torch.as_tensor(
+            toks, device=dev)})
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         [p.detach().cpu() for p in model.parameters()],
+                         dict(kernels.LAUNCHES))
+    L = cfg.n_layers
+    gmm = 12 * L if moe else 0
+    want = {"flash_attention": 2 * L, "flash_attention.rows": 2 * L,
+            "flash_attention_bwd": L}
+    if moe:
+        want.update({"grouped_matmul": gmm, "grouped_matmul.simt": gmm})
+    assert out["cuda"][3] == want and out["cpu"][3] == {}
+    for i in (0, 1):
+        np.testing.assert_allclose(out["cuda"][i], out["cpu"][i], rtol=2e-3,
+                                   atol=2e-4)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)

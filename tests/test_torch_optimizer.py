@@ -107,3 +107,29 @@ def test_config_defaults_match_reference():
         assert st.step.dtype == torch.int32
         assert [tuple(e.shape) for e in st.ef_error] == \
             [e.shape for e in jax.tree.leaves(jst.ef_error)]
+
+
+def test_compression_scales_each_stacked_leaf_as_the_reference():
+    """A stacked reference leaf held by the port as per-layer tensors (the
+    LM's layers) is quantized with the one int8 scale of the whole leaf:
+    ``groups`` names the tensors of one leaf.  Layer 1's gradients are 100x
+    layer 0's, so a scale per tensor would round layer 0 differently."""
+    cfg = dict(lr=1e-2, warmup_steps=0, total_steps=10, compress_grads=True)
+    rcfg, pcfg = ref.AdamWConfig(**cfg), opt.AdamWConfig(**cfg)
+    rng = np.random.default_rng(7)
+    stacked = rng.normal(size=(2, 6, 5)).astype(np.float32)
+    g = rng.normal(size=(2, 6, 5)).astype(np.float32) * np.array(
+        [1.0, 100.0], np.float32)[:, None, None]
+    jp = {"w": jnp.asarray(stacked)}
+    jst = ref.init(rcfg, jp)
+    jp, jst, _ = ref.update(rcfg, {"w": jnp.asarray(g)}, jst, jp)
+    tp = [torch.tensor(stacked[0]), torch.tensor(stacked[1])]
+    tst = opt.init(pcfg, tp)
+    tp, tst, _ = opt.update(pcfg, [torch.tensor(g[0]), torch.tensor(g[1])],
+                            tst, tp, groups=[[0, 1]])
+    for i in range(2):
+        np.testing.assert_allclose(tst.ef_error[i].numpy(),
+                                   np.asarray(jst.ef_error["w"])[i],
+                                   rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(tp[i].numpy(), np.asarray(jp["w"])[i],
+                                   rtol=TOL, atol=TOL)
