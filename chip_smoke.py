@@ -164,26 +164,35 @@ Phases, each printing one JSON line:
              (rtol 2e-3 / atol 2e-4), and exact launch counts a step: K2's
              forward L x 2 (the layer's recompute under
              ``torch.utils.checkpoint`` launches it again), all on
-             ``rows``; K2's backward (``flash_attention_bwd``) L; K3 (MoE)
-             L x 3 x 2 + L x 6 (forward, recompute, dx and dw), all on
-             ``simt``.  Then 5 steps timed with CUDA events, peak memory,
-             TFLOP/s of ``train_flops``, one profiled step, and the
+             ``rows``; K2's backward (``flash_attention_bwd``) L, all on
+             its ``saved`` route (the forward's output and log-sum-exp);
+             K3 (MoE) L x 3 x 2 + L x 6 (forward, recompute, dx and dw),
+             all on ``simt``.  Then 5 steps timed with CUDA events, peak
+             memory, TFLOP/s of ``train_flops``, one profiled step, and the
              checkpoint's save and restore seconds;
-22. kernel — the attention backward (``attention_bwd``) on layer 0's
-             operands captured in a timed ``lm100m`` step, its output
-             gradient scaled to unit RMS (the backward is linear in it;
-             each gradient's largest value must reach 10x the tolerance),
-             against autograd
-             through the plain version on the card (2e-3), timed as the
-             other phases, beside its operations bound and the backward of
+22. kernel — K2's forward on its ``rows`` route at the training shape
+             (``lm100m`` layer 0, fp32), beside SDPA with an explicit mask
+             and with ``is_causal``; then the attention backward
+             (``attention_bwd``) on layer 0's operands captured in a timed
+             ``lm100m`` step, its output gradient scaled to unit RMS (the
+             backward is linear in it; each gradient's largest value must
+             reach 10x the tolerance), against autograd through the plain
+             version on the card (2e-3): through the Function (the
+             ``saved`` route) and on the ``recompute`` route, bit-equal
+             over two calls, timed as the training path calls it (with the
+             forward's output and log-sum-exp; at most 1.6 ms) and on the
+             other route, beside its operations bound and the backward of
              SDPA (``is_causal``) on the same inputs; then the same
-             operands cast to bf16 (the forward on ``tc``), held at 2e-2;
+             operands cast to bf16 (the forward on ``tc``, the backward
+             recomputing), held at 2e-2;
 23. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
-             w2 products captured the same way (``dy`` at unit RMS):
-             both gradients against
-             autograd through the plain version (1e-4), and the three
-             products (forward, dx = dy w^T, dw = x^T dy) each timed
-             beside ``torch.bmm`` and its bound.
+             w2 products captured the same way (``dy`` at unit RMS): both
+             gradients against autograd through the plain version (1e-4),
+             dw bit-equal over two calls, and the three products as the
+             Function makes them (forward; dx = dy w^T and dw = x^T dy
+             reading w and x in place through the layout flags) each timed
+             beside ``torch.bmm`` on the same operands and its bound, at
+             most 0.33 ms each, with the simt kernel's output tile rows.
 
 Then a ``{"kernels": [...]}`` line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -270,6 +279,11 @@ LM_RUNS = {"lm100m": (8, 1024, 20), "lm-moe": (16, 1024, 10)}
 LM_RESUME_STEPS = {"lm100m": 30}
 LM_CHECK_SHAPE = (1, 256)
 LM_TIMED_STEPS = 5
+# the backward kernels' gates (ISSUE-set, H100): K2's fp32 backward on
+# lm100m's layer 0 as the training path calls it, and each of K3's six
+# simt products of lm-moe's layer 0 (forward, dx, dw of w1 and w2)
+ATTN_BWD_LIMIT_MS = 1.6
+GMM_SIMT_LIMIT_MS = 0.33
 # the update stream at sf=100: a round's writes (edge inserts, deletes of
 # base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
 # only), its reads, the chunks they interleave in, the reads a round held
@@ -2084,11 +2098,13 @@ def attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=amask, enable_gqa=G > 1), reps,
         batch=ATTN_BATCH, queued=True)
-    # and, for a plain causal call, SDPA's causal flash path over the
-    # kv_len filled rows only: the same work as the kernel's
+    # and, for a plain causal call (every slot from position 0 over Sq
+    # keys: serving's prefill, a training step), SDPA's causal path over
+    # the kv_len filled rows only: the same work as the kernel's
     library_causal_ms = None
     n = int(kv_len[0])
-    if (B == 1 and int(q_start[0]) == 0 and n == Sq
+    if (int(q_start.abs().max()) == 0 and n == Sq
+            and bool((kv_len == n).all())
             and kw.get("window") is None and kw.get("softcap") is None):
         kc, vc = ks[:, :, :n], vs[:, :, :n]
         library_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -2674,7 +2690,8 @@ def gnn_path() -> dict:
 def lm_launches_per_step(cfg) -> dict:
     """Kernel launches one train step makes, from the code: K2's forward
     once a layer and once more in the layer's recompute (remat), its
-    backward once a layer; K3's three expert products in the forward and
+    backward once a layer, on the route that reads the forward's saved
+    output and log-sum-exp; K3's three expert products in the forward and
     the recompute, and two more launches (dx, dw) for each in the
     backward."""
     fwd = 1 + int(cfg.remat)
@@ -2682,6 +2699,7 @@ def lm_launches_per_step(cfg) -> dict:
     return {"flash_attention": fwd * cfg.n_layers,
             "flash_attention.rows": fwd * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers,
+            "flash_attention_bwd.saved": cfg.n_layers,
             "grouped_matmul": gmm, "grouped_matmul.simt": gmm}
 
 
@@ -2960,18 +2978,23 @@ def _bwd_bound(nbytes: int, ops: float, bf16: bool) -> tuple[float, str]:
 
 def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
                         dout, tol: float, reps: int = REPS) -> dict:
-    """K2's backward kernel against autograd through the plain version on
+    """K2's backward kernels against autograd through the plain version on
     one captured call: the Function's gradients (forward on its route,
-    backward counted once), the bound (10 hd flops an admissible pair: the
-    five products), the plain backward and SDPA's causal backward.  The
-    backward is linear in ``dout``; the captured one (of a loss averaged
-    over every token) is scaled to unit RMS, so the gradients are O(1)
-    and the tolerance is far below them."""
+    backward counted once, on the route the training path takes: ``saved``
+    where the forward keeps its log-sum-exp, fp32 on ``rows``), the other
+    route's gradients, the bound (10 hd flops an admissible pair: the five
+    products), the plain backward and SDPA's causal backward; both routes
+    timed, the saved one as the training path calls it (with the forward's
+    output and log-sum-exp), and its gradients equal bit for bit over two
+    calls.  The backward is linear in ``dout``; the captured one (of a loss
+    averaged over every token) is scaled to unit RMS, so the gradients are
+    O(1) and the tolerance is far below them."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, route)
+        flash_attention, flash_attention_bwd, flash_attention_lse, route,
+        saves_lse)
     from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                          per_batch)
     B, Sq, Kh, G, hd = q.shape
@@ -2979,18 +3002,40 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     dout = _unit_rms(dout)
     starts = per_batch(q_start, B, q.device)
     lens = per_batch(kv_len, B, q.device)
+    saved = {}
+    if saves_lse(q, k, v):
+        out, lse = flash_attention_lse(q, k, v, starts, lens, **kw)
+        saved = {"out": out, "lse": lse}
+    which = "saved" if saved else "recompute"
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    before = kernels.LAUNCHES.get("flash_attention_bwd", 0)
-    out = flash_attention(*leaves, starts, lens, **kw)
-    got = torch.autograd.grad(out, leaves, dout)
+    before = {n: kernels.LAUNCHES.get(n, 0) for n in (
+        "flash_attention_bwd", "flash_attention_bwd.saved",
+        "flash_attention_bwd.recompute")}
+    out_fn = flash_attention(*leaves, starts, lens, **kw)
+    got = torch.autograd.grad(out_fn, leaves, dout)
     torch.cuda.synchronize()
-    require(kernels.LAUNCHES.get("flash_attention_bwd", 0) == before + 1,
-            f"{label}: no flash_attention_bwd launch")
+    for n, c in before.items():
+        want_n = c + (1 if n == "flash_attention_bwd"
+                      or n == f"flash_attention_bwd.{which}" else 0)
+        require(kernels.LAUNCHES.get(n, 0) == want_n,
+                f"{label}: {n} launched {kernels.LAUNCHES.get(n, 0) - c} "
+                f"times, expected {want_n - c}")
     plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out_ref = flash_attention_ref(*plain, starts, lens, **kw)
     want = torch.autograd.grad(out_ref, plain, dout, retain_graph=True)
     verdicts = _grad_verdicts(label, "qkv", got, want, tol)
     rec = dict(max(verdicts, key=lambda r: r["worst_of_tol"]))
+    call = (q, k, v, dout, starts, lens)
+    if saved:
+        other = flash_attention_bwd(*call, **kw)
+        verdicts += _grad_verdicts(f"{label} recompute", "qkv", other, want,
+                                   tol)
+    again = [flash_attention_bwd(*call, **kw, **saved) for _ in range(2)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(*again)),
+            f"{label}: the {which} route's gradients differ between two "
+            f"calls")
+    del again
     q_pos = starts[:, None] + torch.arange(Sq, device=q.device)
     kv_pos = torch.arange(Skv, device=q.device)
     mask = (kv_pos[None, None] <= q_pos[:, :, None]) & (
@@ -3003,9 +3048,11 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     nbytes = esize * (3 * q.numel() + 4 * int(lens.sum()) * Kh * hd)
     bound_ms, bound_by = _bwd_bound(nbytes, 10 * hd * pairs,
                                     q.dtype == torch.bfloat16)
-    call = (q, k, v, dout, starts, lens)
-    kernel_ms = cuda_ms(lambda: flash_attention_bwd(*call, **kw), reps,
-                        batch=ATTN_BATCH, queued=True)
+    kernel_ms = cuda_ms(lambda: flash_attention_bwd(*call, **kw, **saved),
+                        reps, batch=ATTN_BATCH, queued=True)
+    recompute_ms = (cuda_ms(lambda: flash_attention_bwd(*call, **kw), reps,
+                            batch=ATTN_BATCH, queued=True)
+                    if saved else kernel_ms)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         out_ref, plain, dout, retain_graph=True), max(3, reps // 4),
         warmup=1)
@@ -3024,15 +3071,24 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             out_lib, heads, d_heads, retain_graph=True), reps,
             batch=ATTN_BATCH, queued=True)
+    if q.dtype == torch.float32:
+        require(kernel_ms <= ATTN_BWD_LIMIT_MS,
+                f"{label}: backward {kernel_ms:.4g} ms > "
+                f"{ATTN_BWD_LIMIT_MS} ms")
     rec.update({"phase": "kernel", "name": "flash_attention_bwd",
                 "input": label, "forward_route": route(q, k, v),
+                "route": which,
                 "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Kh": Kh, "G": G,
                           "hd": hd},
                 "dtype": str(q.dtype), "admissible_pairs": pairs,
                 "bytes": nbytes, "verdicts": verdicts,
+                "bit_equal_two_calls": True,
                 "kernel_ms": kernel_ms,
                 "kernel_ms_single": cuda_ms(
-                    lambda: flash_attention_bwd(*call, **kw), reps),
+                    lambda: flash_attention_bwd(*call, **kw, **saved), reps),
+                "kernel_ms_recompute": recompute_ms,
+                "limit_ms": (ATTN_BWD_LIMIT_MS if q.dtype == torch.float32
+                             else None),
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "pct_of_bound": 100 * bound_ms / kernel_ms,
@@ -3045,12 +3101,16 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
                   reps: int = REPS) -> dict:
     """K3's backward on one captured expert product: the Function's dx and
     dw (three launches, all on ``simt``) against autograd through the
-    plain version, and each of the three products (forward, dx = dy w^T,
-    dw = x^T dy) timed beside ``torch.bmm`` and its bound.  ``dy`` is
-    scaled to unit RMS, as ``dout`` in ``attention_bwd_phase``."""
+    plain version, dw equal bit for bit over two calls, and each of the
+    three products as the Function calls it (forward, dx = dy w^T reading w
+    in place, dw = x^T dy reading x in place) timed beside ``torch.bmm`` on
+    the same operands (transposed views) and its bound, with the simt
+    kernel's output tile rows.  ``dy`` is scaled to unit RMS, as ``dout`` in
+    ``attention_bwd_phase``."""
     import torch
     from repro_torch import kernels
-    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul, route
+    from repro_torch.kernels.grouped_matmul.ops import (grouped_matmul,
+                                                        route, simt_tile)
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
     dy = _unit_rms(dy)
     before = {n: kernels.LAUNCHES.get(n, 0)
@@ -3066,33 +3126,48 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
     want = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr), dy)
     verdicts = _grad_verdicts(label, "xw", got, want, tol)
     rec = dict(max(verdicts, key=lambda r: r["worst_of_tol"]))
-    wt = w.transpose(1, 2).contiguous()
-    xt = x.transpose(1, 2).contiguous()
+    dw_again = grouped_matmul(x, dy, trans_x=True)
+    torch.cuda.synchronize()
+    require(torch.equal(dw_again, got[1]),
+            f"{label}: dw differs between two calls")
     products = {}
-    for name, (a, b) in (("fwd", (x, w)), ("dx", (dy, wt)),
-                         ("dw", (xt, dy))):
-        require(route(a, b) == "simt", f"{label} {name}: route "
-                                       f"{route(a, b)}")
-        G, M, K = a.shape
-        N = b.shape[2]
+    for name, (a, b, flags) in (
+            ("fwd", (x, w, {})), ("dx", (dy, w, {"trans_w": True})),
+            ("dw", (x, dy, {"trans_x": True}))):
+        al = a.transpose(1, 2) if flags.get("trans_x") else a
+        bl = b.transpose(1, 2) if flags.get("trans_w") else b
+        require(route(al, bl) == "simt", f"{label} {name}: route "
+                                         f"{route(al, bl)}")
+        G, M, K = al.shape
+        N = bl.shape[2]
         bound_ms, bound_by = _bwd_bound(
             a.element_size() * (a.numel() + b.numel() + G * M * N),
             2 * G * M * K * N, False)
-        kernel_ms = cuda_ms(lambda: grouped_matmul(a, b), reps,
+        kernel_ms = cuda_ms(lambda: grouped_matmul(a, b, **flags), reps,
                             batch=GMM_BATCH)
-        library_ms = cuda_ms(lambda: torch.bmm(a, b), reps, batch=GMM_BATCH)
+        library_ms = cuda_ms(lambda: torch.bmm(al, bl), reps,
+                             batch=GMM_BATCH)
+        require(kernel_ms <= GMM_SIMT_LIMIT_MS,
+                f"{label} {name}: simt {kernel_ms:.4g} ms > "
+                f"{GMM_SIMT_LIMIT_MS} ms")
         products[name] = {
             "shape": {"G": G, "M": M, "K": K, "N": N},
+            "layout": {"trans_x": bool(flags.get("trans_x")),
+                       "trans_w": bool(flags.get("trans_w"))},
+            "tile_rows": simt_tile(G, M, N),
             "kernel_ms": kernel_ms,
-            "kernel_ms_single": cuda_ms(lambda: grouped_matmul(a, b), reps),
-            "plain_ms": cuda_ms(lambda: grouped_matmul_ref(a, b),
+            "kernel_ms_single": cuda_ms(
+                lambda: grouped_matmul(a, b, **flags), reps),
+            "plain_ms": cuda_ms(lambda: grouped_matmul_ref(a, b, **flags),
                                 max(3, reps // 4), warmup=1),
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "pct_of_bound": 100 * bound_ms / kernel_ms,
+            "limit_ms": GMM_SIMT_LIMIT_MS,
             "kernel_over_library": kernel_ms / library_ms}
     rec.update({"phase": "kernel", "name": "grouped_matmul_bwd",
                 "input": label, "dtype": str(x.dtype), "route": "simt",
-                "verdicts": verdicts, "products": products})
+                "verdicts": verdicts, "dw_bit_equal_two_calls": True,
+                "products": products})
     return rec
 
 

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels: mbarrier pipelines, TMA tensor loads, wgmma descriptors and
-// products, and the host-side tensor-map encoder.  Included by
-// grouped_matmul/csrc/grouped_matmul.cu and flash_attention/csrc/
-// flash_attention.cu; _build.library_path hashes it with each of them, so
-// an edited helper rebuilds both.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarrier
+// pipelines, TMA tensor loads, wgmma descriptors and products, the
+// host-side tensor-map encoder, and cp.async copies for the fp32 SIMT
+// kernels.  Included by grouped_matmul/csrc/grouped_matmul.cu and
+// flash_attention/csrc/flash_attention{,_bwd}.cu; _build.library_path
+// hashes it with each of them, so an edited helper rebuilds all three.
 
 #pragma once
 
@@ -70,6 +70,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // async-proxy reads of it (wgmma operands)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+
+// 16 bytes from global `src` to shared `dst` (both 16-byte aligned),
+// through L2 only; with `valid` false the 16 bytes are zero-filled and
+// `src` (any mapped address) is not read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, as cp_async16
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most `kPending` of this thread's committed groups are in
+// flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 // a barrier of `threads` threads (a multiple of 32) on named barrier `id`

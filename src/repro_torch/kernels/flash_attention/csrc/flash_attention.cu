@@ -55,7 +55,10 @@
 //   block owns 64 query rows of one kv head and walks 64-key tiles in
 //   shared memory with an online softmax, 4x4 register tiles.  Tiles at or
 //   past kv_len, past the block's last causal position and wholly before
-//   its window are skipped.
+//   its window are skipped.  Given an `lse` pointer (the training path's
+//   forward), it also writes each row's log-sum-exp m + log(l), fp32
+//   [B, Kh, Sq * G] (0 for a row with no admissible key), which the
+//   backward (flash_attention_bwd.cu) reads instead of recomputing it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -136,8 +139,8 @@ __global__ void __launch_bounds__(kThreads)
 attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int32_t* __restrict__ q_start,
                  const int32_t* __restrict__ kv_len, T* __restrict__ out,
-                 int Sq, int Skv, int Kh, int G, int window, float softcap,
-                 float scale) {
+                 float* __restrict__ lse, int Sq, int Skv, int Kh, int G,
+                 int window, float softcap, float scale) {
   constexpr int DC = HD / 16;               // output dims per thread
   constexpr int KS = HD + 1;                // padded K row: no bank conflicts
   constexpr int PS = kBKV + 1;
@@ -287,6 +290,11 @@ attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* o = out + q_off(b, row / G, kh, row % G, Sq, Kh, G, HD);
 #pragma unroll
       for (int c = 0; c < DC; ++c) store(o + tx + 16 * c, acc[i][c] * inv);
+      // m and l are the same on the 16 lanes of the row
+      if (lse != nullptr && tx == 0) {
+        lse[((size_t)b * Kh + kh) * R + row] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
+      }
     }
   }
 }
@@ -780,9 +788,9 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <typename T, int HD>
 int launch_rows(const void* q, const void* k, const void* v,
-                const void* q_start, const void* kv_len, void* out, int B,
-                int Sq, int Skv, int Kh, int G, int window, float softcap,
-                cudaStream_t stream) {
+                const void* q_start, const void* kv_len, void* out,
+                float* lse, int B, int Sq, int Skv, int Kh, int G, int window,
+                float softcap, cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)HD));
   static bool smem_set = false;  // above 48 KB needs the opt-in
   if (!smem_set) {
@@ -795,7 +803,7 @@ int launch_rows(const void* q, const void* k, const void* v,
   const dim3 grid((Sq * G + kBQ - 1) / kBQ, Kh, B);
   attn_rows_kernel<T, HD><<<grid, kThreads, rows_smem_bytes<HD>(), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int32_t*)q_start,
-      (const int32_t*)kv_len, (T*)out, Sq, Skv, Kh, G, window, softcap,
+      (const int32_t*)kv_len, (T*)out, lse, Sq, Skv, Kh, G, window, softcap,
       scale);
   return (int)cudaGetLastError();
 }
@@ -894,18 +902,19 @@ int launch_tc(const void* q, const void* k, const void* v,
 // Pointers are device memory, contiguous, 16-byte aligned; window >= 1
 // (1 << 30 for none); softcap <= 0 for none; dtype 0 is fp32, 1 bf16.
 
-// The rows route: head_dim 16, 32, 64 or 128, any R.
+// The rows route: head_dim 16, 32, 64 or 128, any R.  `lse` is null, or
+// fp32 [B, Kh, Sq * G] for each row's log-sum-exp.
 extern "C" int flash_attention_rows(const void* q, const void* k,
                                     const void* v, const void* q_start,
-                                    const void* kv_len, void* out, int B,
-                                    int Sq, int Skv, int Kh, int G, int hd,
-                                    int window, float softcap, int dtype,
-                                    void* stream) {
+                                    const void* kv_len, void* out, void* lse,
+                                    int B, int Sq, int Skv, int Kh, int G,
+                                    int hd, int window, float softcap,
+                                    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Kh <= 0 || G <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_ROWS(T, HD)                                                      \
-  return launch_rows<T, HD>(q, k, v, q_start, kv_len, out, B, Sq, Skv, Kh, \
-                            G, window, softcap, s)
+  return launch_rows<T, HD>(q, k, v, q_start, kv_len, out, (float*)lse, B, \
+                            Sq, Skv, Kh, G, window, softcap, s)
   if (dtype == 0) {
     switch (hd) {
       case 16: FA_ROWS(float, 16);

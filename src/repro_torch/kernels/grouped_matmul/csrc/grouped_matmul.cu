@@ -32,11 +32,29 @@
 //   from L2 than BN = 128 did, and ran faster on the serving shapes).
 //   M <= 64 (decode): BM = 64, BN = 64, 6 stages, two blocks per SM, so
 //   G * N / 64 blocks (1,024 for OLMoE's w1) keep w streaming.
-// * gmm_kernel (fp32, and bf16 shapes TMA cannot take): one block per
-//   (g, 64-row tile, 64-column tile), 256 threads, each computing a 4x4
-//   register tile with scalar fp32 FMA from 16-deep K tiles staged in
-//   shared memory (x transposed, so both operands are read as float4).
-//   Every load is bounds-checked, so any M, N, K runs.
+// * gmm_kernel_simt (fp32, and bf16 shapes TMA cannot take; the LM's
+//   training path in fp32, TF32 off): scalar fp32 FMA, bound by operations
+//   on the training shapes (2 G M K N flops at 67 TFLOP/s).  A block of
+//   256 threads owns a 128 x 128 output tile of one expert, each thread
+//   8 x 8 outputs: two float4s of each operand a k step for 64 FMAs, which
+//   is what keeps the FMA units fed, since a warp's 16-byte shared-memory
+//   read takes 4 of the SM's cycles whatever it broadcasts (PERF.md
+//   section 6).  Where 128-row tiles would leave SMs idle (fewer tiles
+//   than SMs: the backward's dw) or rows idle (M <= 64: decode), a 64 x
+//   128 tile, 4 x 8 a thread (ops.py::simt_tile picks from the shape).
+//   16-deep K stages in shared memory, double buffered with one barrier a
+//   stage:
+//   the operand whose rows are contiguous in the stage's layout is copied
+//   by cp.async 16-byte copies, the other loaded into registers while the
+//   current stage computes.  Layout flags read the backward's operands in
+//   place: trans_x reads x stored [G, K, M] (dw = x^T dy), trans_w w
+//   stored [G, N, K] (dx = dy w^T).  K is summed in order in every output,
+//   never split: the backward's gradients then equal the plain version's
+//   (cuBLAS, the same order) bit for bit, where a split K differs from it
+//   by more than the 1e-4 tolerance on K = 5,120 (PERF.md section 6).
+//   16-byte copies need fp32, M, K, N multiples of 4 and 16-byte aligned
+//   bases (`vec`); anything else loads element by element,
+//   bounds-checked, so any M, N, K runs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -54,10 +72,10 @@ using namespace hopper;
 // the wgmma B-transpose immediate: 1 reads w's [K, N] tile as MN-major
 constexpr int kTransB = 1;
 
-// ------------------------------------------------ scalar route (gmm_kernel)
+// ------------------------------------------- scalar route (gmm_kernel_simt)
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
-constexpr int kAS = kBM + 4;   // padded row of the transposed x tile
+constexpr int kThreads = 256;
+constexpr int kBN = 128, kBK = 16;   // tile columns, K of a stage
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -68,73 +86,258 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float As[kBK][kAS];   // x tile, [k][m]
-  __shared__ __align__(16) float Bs[kBK][kBN];   // w tile, [k][n]
-  const int g = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+// out[g] = op(x[g]) @ op(w[g]), one (64 H) x 128 output tile a block.
+// TA: x stored [K, M]; TB: w stored [N, K]; VEC: 16-byte loads and copies
+// (fp32; M, K, N multiples of 4, aligned).
+//
+// Thread (ty, tx) owns rows ty*4 + i + 64 hm (i < 4, hm < H) and columns
+// tx*4 + j + 64 hn (j < 4, hn < 2), or with TB columns tx + 16j (j < 8):
+// 4H x 8 outputs.  Each output sums its K products in order, k = 0, 1, ...
+// (as cuBLAS does: the two agree bit for bit).  x's tile is k-major
+// [k][m]: copied so where x is stored [K, M], else loaded into registers
+// during the previous stage's products and stored transposed.  w's tile is
+// k-major [k][n] where w is [K, N]; where it is stored [N, K] it is
+// [k / 4][n][4]: each row's 4-float pieces copied as they lie, and read as
+// float4s along k (4 k steps a read) whose 8 columns of a warp are 8
+// neighbouring pieces, 128 contiguous bytes.
+template <typename T, int H, bool TA, bool TB, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+gmm_kernel_simt(const T* __restrict__ x, const T* __restrict__ w,
+                T* __restrict__ out, int M, int K, int N) {
+  static_assert(!VEC || sizeof(T) == 4, "16-byte copies are fp32 only");
+  constexpr int BM = 64 * H;           // tile rows
+  constexpr int kAS = BM + 4;          // padded row of the k-major x tile
+  constexpr int kBS = kBN + 4;         // padded row of the k-major w tile
+  constexpr int kBFloats = TB ? kBK * kBN : kBK * kBS;
+  // loads a thread makes of x's and of w's stage
+  constexpr int kVA = VEC ? H : 4 * H, kVB = VEC ? 2 : 8;
+  __shared__ __align__(16) float As[2][kBK][kAS];        // x tile, [k][m]
+  __shared__ __align__(16) float Bs[2][kBFloats];        // w tile
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM, g = blockIdx.z;
+  const int nt = (K + kBK - 1) / kBK;
   const T* xg = x + (size_t)g * M * K;
   const T* wg = w + (size_t)g * K * N;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a warp covers 4 row groups x 8 column groups: its reads of a stage
+  // touch 4 and 8 distinct 16-byte pieces, all in distinct banks
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // the register-staged part of a stage: x's where it is [M, K], w's
+  // element-wise loads
+  float ra[4 * H], rb[8];
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  // Issues the loads of the stage at k0 into buffer st: cp.async for
+  // every operand the 16-byte copies can fill as it lies, registers for
+  // x [M, K] and for element-wise loads.
+  auto fetch = [&](int k0, int st) {
 #pragma unroll
-    for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kBK, kk = e % kBK;
-      const int m = m0 + r, kx = k0 + kk;
-      As[kk][r] = (m < M && kx < K) ? to_f(xg[(size_t)m * K + kx]) : 0.f;
+    for (int h = 0; h < kVA; ++h) {
+      const int e = tid + kThreads * h;
+      if constexpr (!TA && VEC) {          // x [M, K]: 4 k of a row
+        const int r = e >> 2, kc = (e & 3) * 4;
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (m0 + r < M && k0 + kc < K)
+          t = *reinterpret_cast<const float4*>(
+              xg + (size_t)(m0 + r) * K + k0 + kc);
+        ra[4 * h] = t.x; ra[4 * h + 1] = t.y;
+        ra[4 * h + 2] = t.z; ra[4 * h + 3] = t.w;
+      } else if constexpr (!TA) {
+        const int r = e >> 4, kk = e & 15;
+        ra[h] = (m0 + r < M && k0 + kk < K)
+                    ? to_f(xg[(size_t)(m0 + r) * K + k0 + kk]) : 0.f;
+      } else if constexpr (VEC) {          // x stored [K, M]: 4 m of a k
+        const int kk = e / (BM / 4), mc = (e % (BM / 4)) * 4;
+        const bool ok = k0 + kk < K && m0 + mc < M;
+        cp_async16(&As[st][kk][mc],
+                   ok ? xg + (size_t)(k0 + kk) * M + m0 + mc : xg, ok);
+      } else {
+        const int kk = e / BM, m = e % BM;
+        ra[h] = (k0 + kk < K && m0 + m < M)
+                    ? to_f(xg[(size_t)(k0 + kk) * M + m0 + m]) : 0.f;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < (kBK * kBN) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int kk = e / kBN, c = e % kBN;
-      const int kx = k0 + kk, n = n0 + c;
-      Bs[kk][c] = (kx < K && n < N) ? to_f(wg[(size_t)kx * N + n]) : 0.f;
+    for (int h = 0; h < kVB; ++h) {
+      const int e = tid + kThreads * h;
+      if constexpr (!TB && VEC) {          // w [K, N]: 4 n of a k
+        const int kk = e >> 5, nc = (e & 31) * 4;
+        const bool ok = k0 + kk < K && n0 + nc < N;
+        cp_async16(&Bs[st][kk * kBS + nc],
+                   ok ? wg + (size_t)(k0 + kk) * N + n0 + nc : wg, ok);
+      } else if constexpr (!TB) {
+        const int kk = e >> 7, n = e & 127;
+        rb[h] = (k0 + kk < K && n0 + n < N)
+                    ? to_f(wg[(size_t)(k0 + kk) * N + n0 + n]) : 0.f;
+      } else if constexpr (VEC) {          // w stored [N, K]: 4 k of a row
+        const int n = e >> 2, kc = e & 3;
+        const bool ok = n0 + n < N && k0 + 4 * kc < K;
+        cp_async16(&Bs[st][(kc * kBN + n) * 4],
+                   ok ? wg + (size_t)(n0 + n) * K + k0 + 4 * kc : wg, ok);
+      } else {
+        const int n = e >> 4, kk = e & 15;
+        rb[h] = (n0 + n < N && k0 + kk < K)
+                    ? to_f(wg[(size_t)(n0 + n) * K + k0 + kk]) : 0.f;
+      }
     }
-    __syncthreads();
+  };
+
+  // Stores the register-staged part of a stage into buffer st.
+  auto deposit = [&](int st) {
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int h = 0; h < kVA; ++h) {
+      const int e = tid + kThreads * h;
+      if constexpr (!TA && VEC) {
+        const int r = e >> 2, kc = (e & 3) * 4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int u = 0; u < 4; ++u) As[st][kc + u][r] = ra[4 * h + u];
+      } else if constexpr (!TA) {
+        As[st][e & 15][e >> 4] = ra[h];
+      } else if constexpr (!VEC) {
+        As[st][e / BM][e % BM] = ra[h];
+      }
     }
+    if constexpr (!VEC) {
+#pragma unroll
+      for (int h = 0; h < kVB; ++h) {
+        const int e = tid + kThreads * h;
+        if constexpr (TB) {
+          Bs[st][(((e & 15) >> 2) * kBN + (e >> 4)) * 4 + (e & 3)] = rb[h];
+        } else {
+          Bs[st][(e >> 7) * kBS + (e & 127)] = rb[h];
+        }
+      }
+    }
+  };
+
+  float acc[4 * H][8];
+#pragma unroll
+  for (int i = 0; i < 4 * H; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  if (nt > 0) {
+    fetch(0, 0);
+    deposit(0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & 1;
+    const bool more = t + 1 < nt;
+    // the next stage's copies fly while this one computes; buffer st ^ 1
+    // was last read before the barrier that ended the previous stage
+    if (more) fetch((t + 1) * kBK, st ^ 1);
+    cp_async_commit();
+#pragma unroll
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float bq[8][4];   // TB: columns tx + 16j at k steps kq .. kq + 3
+      if constexpr (TB) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &Bs[st][((kq >> 2) * kBN + tx + 16 * j) * 4]);
+          bq[j][0] = v.x; bq[j][1] = v.y; bq[j][2] = v.z; bq[j][3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int kk = kq + u;
+        float a[4 * H], b[8];
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float4 av =
+              *reinterpret_cast<const float4*>(&As[st][kk][64 * h + ty * 4]);
+          a[4 * h] = av.x; a[4 * h + 1] = av.y;
+          a[4 * h + 2] = av.z; a[4 * h + 3] = av.w;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (TB) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) b[4 * h + jj] = bq[4 * h + jj][u];
+          } else {
+            const float4 bv = *reinterpret_cast<const float4*>(
+                &Bs[st][kk * kBS + 64 * h + tx * 4]);
+            b[4 * h] = bv.x; b[4 * h + 1] = bv.y;
+            b[4 * h + 2] = bv.z; b[4 * h + 3] = bv.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4 * H; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    if (more) deposit(st ^ 1);
+    cp_async_wait<0>();
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int i = 0; i < 4 * H; ++i) {
+    const int m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
     if (m >= M) continue;
-    T* o = out + ((size_t)g * M + m) * N;
+    T* row = out + ((size_t)g * M + m) * N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) store(o + n, acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (TB) {
+#pragma unroll
+        for (int j = 4 * h; j < 4 * h + 4; ++j) {
+          const int n = n0 + tx + 16 * j;
+          if (n < N) store(row + n, acc[i][j]);
+        }
+      } else {
+        const int n = n0 + 64 * h + tx * 4;
+        const float* v = &acc[i][4 * h];
+        if constexpr (VEC) {   // N % 4 == 0: all four columns or none
+          if (n < N)
+            *reinterpret_cast<float4*>(row + n) =
+                make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (n + jj < N) store(row + n + jj, v[jj]);
+        }
+      }
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, int G, int M, int K,
-           int N, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, G);
-  gmm_kernel<T><<<grid, kThreads, 0, stream>>>((const T*)x, (const T*)w,
-                                              (T*)out, M, K, N);
+template <typename T, int H, bool VEC>
+int launch_simt(const void* x, const void* w, void* out, int G, int M,
+                int K, int N, bool trans_x, bool trans_w,
+                cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + 64 * H - 1) / (64 * H), G);
+  const T *tx = (const T*)x, *tw = (const T*)w;
+  T* to = (T*)out;
+  if (trans_x && trans_w)
+    gmm_kernel_simt<T, H, true, true, VEC>
+        <<<grid, kThreads, 0, stream>>>(tx, tw, to, M, K, N);
+  else if (trans_x)
+    gmm_kernel_simt<T, H, true, false, VEC>
+        <<<grid, kThreads, 0, stream>>>(tx, tw, to, M, K, N);
+  else if (trans_w)
+    gmm_kernel_simt<T, H, false, true, VEC>
+        <<<grid, kThreads, 0, stream>>>(tx, tw, to, M, K, N);
+  else
+    gmm_kernel_simt<T, H, false, false, VEC>
+        <<<grid, kThreads, 0, stream>>>(tx, tw, to, M, K, N);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int launch_simt_tile(const void* x, const void* w, void* out, int G, int M,
+                     int K, int N, bool trans_x, bool trans_w, int tile_m,
+                     cudaStream_t s) {
+  if (tile_m == 128)
+    return launch_simt<T, 2, VEC>(x, w, out, G, M, K, N, trans_x, trans_w,
+                                  s);
+  if (tile_m == 64)
+    return launch_simt<T, 1, VEC>(x, w, out, G, M, K, N, trans_x, trans_w,
+                                  s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------- tensor-core route (gmm_kernel_tc)
@@ -306,19 +509,32 @@ int launch_tc(const void* x, const void* w, void* out, int G, int M, int K,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a dtype code other than 0 (fp32) / 1 (bf16)
-// or a grid the card cannot launch.  Pointers are device memory,
-// contiguous.
-extern "C" int grouped_matmul(const void* x, const void* w, void* out, int G,
-                              int M, int K, int N, int dtype, void* stream) {
+// The scalar route: launches on `stream` and returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for a dtype code other than 0
+// (fp32) / 1 (bf16), tile rows other than 64 / 128, `vec` on bf16, or a grid
+// the card cannot launch.  x is [G, M, K] ([G, K, M] with trans_x), w
+// [G, K, N] ([G, N, K] with trans_w), out [G, M, N], all contiguous device
+// memory.  `vec` (fp32; M, K, N multiples of 4; x, w 16-byte aligned)
+// enables the 16-byte copies.
+extern "C" int grouped_matmul(const void* x, const void* w, void* out,
+                              int G, int M, int K, int N, int trans_x,
+                              int trans_w, int tile_m, int vec, int dtype,
+                              void* stream) {
   if (G <= 0 || M <= 0 || N <= 0) return 0;
-  if (G > 65535 || (M + kBM - 1) / kBM > 65535) {
+  if (G > 65535 || (M + 63) / 64 > 65535 || (vec && dtype != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, w, out, G, M, K, N, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, G, M, K, N, s);
+  if (dtype == 0 && vec)
+    return launch_simt_tile<float, true>(x, w, out, G, M, K, N, trans_x,
+                                         trans_w, tile_m, s);
+  if (dtype == 0)
+    return launch_simt_tile<float, false>(x, w, out, G, M, K, N, trans_x,
+                                          trans_w, tile_m, s);
+  if (dtype == 1)
+    return launch_simt_tile<__nv_bfloat16, false>(x, w, out, G, M, K, N,
+                                                  trans_x, trans_w, tile_m,
+                                                  s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -992,8 +992,8 @@ def test_gnn_smoke_bundle_on_the_card_matches_the_cpu(card, arch, shape):
     "prefill", "prefill_ints", "ragged", "chunk", "window_softcap",
     "decode", "g4_hd32", "hd16", "hd128_g2", "keys_past_kv_len"])
 def test_attention_backward_kernel_matches_plain_version(card, case, dtype):
-    """``flash_attention_bwd`` (three kernels, counted once) against
-    autograd through the plain version: causal
+    """``flash_attention_bwd`` on its recompute route (counted once)
+    against autograd through the plain version: causal
     prefill (q_start and kv_len as [B] tensors and as ints), a length not a
     multiple of the 64-row tiles, a chunk at q_start > 0, a window with a
     softcap, decode rows, G = 4, head dims 16, 32, 64 and 128, and a cache
@@ -1114,7 +1114,7 @@ def test_lm_train_step_on_the_card_matches_the_cpu(card, moe):
     kernels take (16): loss, gradient norm and updated weights equal the
     CPU's on the same weights (rtol 2e-3 / atol 2e-4), with the launches
     the code implies: K2 L x 2 forward (the remat recompute) on ``rows``,
-    L backward, K3 L x 12 (MoE) on ``simt``."""
+    L backward, all on the saved route, K3 L x 12 (MoE) on ``simt``."""
     from repro_torch.models import transformer as tfm
     from repro_torch.train import optimizer as opt
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -1141,7 +1141,7 @@ def test_lm_train_step_on_the_card_matches_the_cpu(card, moe):
     L = cfg.n_layers
     gmm = 12 * L if moe else 0
     want = {"flash_attention": 2 * L, "flash_attention.rows": 2 * L,
-            "flash_attention_bwd": L}
+            "flash_attention_bwd": L, "flash_attention_bwd.saved": L}
     if moe:
         want.update({"grouped_matmul": gmm, "grouped_matmul.simt": gmm})
     assert out["cuda"][3] == want and out["cpu"][3] == {}
@@ -1150,3 +1150,205 @@ def test_lm_train_step_on_the_card_matches_the_cpu(card, moe):
                                    atol=2e-4)
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
+
+
+# ------------------- LM training: the saved route and the simt redesign
+
+def _bwd_case(card, case, seed=0):
+    """Operands of one attention backward case: (q, k, v, dout, q_start,
+    kv_len, options), fp32, the positions as [B] tensors on the card."""
+    g = torch.Generator(device=card).manual_seed(seed + len(case))
+    B, Sq, Skv, K, G, hd = 2, 200, 200, 2, 1, 64
+    q_start, kv_len, kw = [0, 0], None, {}
+    if case == "hd16_g4":
+        G, hd, Sq, Skv = 4, 16, 77, 77
+    elif case == "hd32_g2_window":
+        G, hd = 2, 32
+        kw = {"window": 33}
+    elif case == "hd128_softcap":
+        hd, Sq, Skv = 128, 130, 130
+        kw = {"softcap": 5.0}
+    elif case == "ragged_chunk":
+        Sq, Skv, q_start = 45, 301, [100, 256]
+    elif case == "short_kv_len":
+        Sq, Skv, kv_len = 150, 333, [150, 97]
+    elif case == "empty_rows":
+        # batch 1's rows sit at 50.. and see no key below its kv_len 20
+        # within the window of 8: zero dq, no NaN
+        Sq, Skv, q_start, kv_len = 70, 90, [0, 50], [70, 20]
+        kw = {"window": 8}
+    q_start = torch.tensor(q_start, dtype=torch.int32, device=card)
+    kv_len = (q_start + Sq if kv_len is None
+              else torch.tensor(kv_len, dtype=torch.int32, device=card))
+    q = torch.randn(B, Sq, K, G, hd, generator=g, device=card)
+    k = torch.randn(B, Skv, K, hd, generator=g, device=card)
+    v = torch.randn(B, Skv, K, hd, generator=g, device=card)
+    dout = torch.randn(B, Sq, K, G, hd, generator=g, device=card)
+    return q, k, v, dout, q_start, kv_len, kw
+
+
+BWD_CASES = ["hd64", "hd16_g4", "hd32_g2_window", "hd128_softcap",
+             "ragged_chunk", "short_kv_len", "empty_rows"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["saved", "recompute"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_backward_routes_match_plain_version(card, case, which):
+    """Both routes of the backward kernels against autograd through the
+    plain version (2e-3): head dims 16-128, G 1/2/4, lengths that are not
+    multiples of the tiles, a window, a softcap, q_start > 0, kv_len <
+    Skv, and rows with no admissible key (dq exactly 0 there).  The saved
+    route takes the plain forward's output and log-sum-exp."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    q, k, v, dout, q_start, kv_len, kw = _bwd_case(card, case)
+    saved = {}
+    if which == "saved":
+        out, lse = flash_attention_ref(q, k, v, q_start, kv_len,
+                                       return_lse=True, **kw)
+        saved = {"out": out, "lse": lse}
+    before = dict(kernels.LAUNCHES)
+    got = flash_attention_bwd(q, k, v, dout, q_start, kv_len, **kw, **saved)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd", f"flash_attention_bwd.{which}"):
+        assert kernels.LAUNCHES[name] == before.get(name, 0) + 1, name
+    want = flash_attention_bwd_ref(q, k, v, dout, q_start, kv_len, **kw)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    if case == "empty_rows":
+        assert not got[0][1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_rows_forward_lse_matches_plain_version(card, case):
+    """The rows route's log-sum-exp output against the plain version's
+    (and its output unchanged by asking for it)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_lse
+    q, k, v, _, q_start, kv_len, kw = _bwd_case(card, case)
+    before = kernels.LAUNCHES.get("flash_attention.rows", 0)
+    out, lse = flash_attention_lse(q, k, v, q_start, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention.rows"] == before + 1
+    want_out, want_lse = flash_attention_ref(q, k, v, q_start, kv_len,
+                                             return_lse=True, **kw)
+    assert lse.shape == want_lse.shape and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
+    assert torch.equal(out, flash_attention(q, k, v, q_start, kv_len, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["saved", "recompute"])
+def test_attention_backward_is_bit_equal_over_two_runs(card, which):
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_lse)
+    q, k, v, dout, q_start, kv_len, kw = _bwd_case(card, "hd32_g2_window")
+    saved = {}
+    if which == "saved":
+        out, lse = flash_attention_lse(q, k, v, q_start, kv_len, **kw)
+        saved = {"out": out, "lse": lse}
+    runs = [flash_attention_bwd(q, k, v, dout, q_start, kv_len, **kw,
+                                **saved) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_attention_backward_raises_when_the_launch_fails(card, monkeypatch):
+    """A failed launch raises; the plain version is never taken and no
+    launch is counted."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v, dout, q_start, kv_len, kw = _bwd_case(card, "hd64")
+    monkeypatch.setattr(fa_ops, "_bwd_kernel_fn",
+                        lambda: (lambda *args: 1))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_ops.flash_attention_bwd(q, k, v, dout, q_start, kv_len, **kw)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_x,trans_w", [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize("G,M,K,N", [
+    (3, 130, 72, 200),        # ragged, 12 wide tiles: 64-wide ones
+    (2, 96, 3000, 40),        # 2 wide tiles: 64-wide ones, long K
+    (4, 1, 512, 260),         # one row: 64-wide tiles
+    (8, 640, 64, 256),        # 80 wide tiles: 64-wide ones
+    (2, 33, 1000, 17),        # odd sizes: element-wise loads
+    (8, 1280, 256, 512),      # 320 wide tiles
+])
+def test_grouped_matmul_simt_layouts_match_plain_version(card, G, M, K, N,
+                                                         trans_x, trans_w):
+    """The simt kernel reading x stored [G, K, M] (trans_x) and w stored
+    [G, N, K] (trans_w) in place, on both output tiles, against the plain
+    version (1e-4), one launch counted on ``simt``."""
+    from repro_torch.kernels.grouped_matmul.ops import simt_tile
+    x, w = _gmm_operands(card, G, M, K, N, torch.float32)
+    xs = x.transpose(1, 2).contiguous() if trans_x else x
+    ws = w.transpose(1, 2).contiguous() if trans_w else w
+    before = dict(kernels.LAUNCHES)
+    got = grouped_matmul(xs, ws, trans_x=trans_x, trans_w=trans_w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_matmul.simt"] == before.get(
+        "grouped_matmul.simt", 0) + 1
+    assert kernels.LAUNCHES["grouped_matmul"] == before.get(
+        "grouped_matmul", 0) + 1
+    assert simt_tile(G, M, N) == (128 if M == 1280 else 64)
+    torch.testing.assert_close(got, grouped_matmul_ref(x, w), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_x", [False, True])
+def test_grouped_matmul_simt_misaligned_base(card, trans_x):
+    """fp32 operands whose base is 4 bytes past 16-byte alignment take the
+    element-wise loads of the same kernel, never the plain version."""
+    G, M, K, N = 2, 64, 600, 48
+    x, w = _gmm_operands(card, G, M, K, N, torch.float32)
+    xs = x.transpose(1, 2).contiguous() if trans_x else x
+    buf = torch.empty(xs.numel() + 1, device=card)
+    shifted = buf[1:].view(xs.shape)
+    shifted.copy_(xs)
+    assert shifted.data_ptr() % 16 == 4
+    before = kernels.LAUNCHES.get("grouped_matmul.simt", 0)
+    got = grouped_matmul(shifted, w, trans_x=trans_x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_matmul.simt"] == before + 1
+    torch.testing.assert_close(got, grouped_matmul_ref(x, w), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,M,K,N", [(4, 1024, 96, 128), (8, 5120, 256, 512)])
+def test_grouped_matmul_backward_is_bit_equal_over_two_runs(card, G, M, K,
+                                                             N):
+    """dx and dw of the same operands, twice: equal bit for bit (dw on
+    64-wide tiles over a long K in the first case)."""
+    from repro_torch.kernels.grouped_matmul.ops import simt_tile
+    assert simt_tile(G, K, N) == 64                  # dw = x^T dy
+    x, w = _gmm_operands(card, G, M, K, N, torch.float32)
+    dy = _gmm_operands(card, G, M, N, 1, torch.float32)[0]
+    runs = []
+    for _ in range(2):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        runs.append(torch.autograd.grad(grouped_matmul(xg, wg), (xg, wg),
+                                        dy))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_raises_when_the_launch_fails(card, monkeypatch):
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    x, w = _gmm_operands(card, 2, 8, 16, 8, torch.float32)
+    monkeypatch.setattr(gmm_ops, "_kernel_fn",
+                        lambda which: (lambda *args: 1))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gmm_ops.grouped_matmul(x, w)
+    assert kernels.LAUNCHES == before

@@ -7,7 +7,8 @@ weights (``params_from_reference``) and the same numpy inputs:
 - ``loss_fn`` and every gradient, by name, against
   ``jax.value_and_grad(repro.models.transformer.loss_fn)`` on a dense, an
   MoE and a gemma2-like tiny config (loss rtol 1e-4; gradients rtol 1e-3 /
-  atol 1e-4);
+  atol 1e-4), also with the attention backward on its saved route (the
+  forward's output and log-sum-exp, as on the card);
 - three ``make_train_step`` steps against three jitted reference steps,
   with compression off and on (parameters and moments at 1e-3 / 1e-4);
 - K3's backward against ``jax.vjp`` of an einsum (1e-4) and K2's against
@@ -134,6 +135,30 @@ def test_train_flops_matches_reference():
 
 
 def test_loss_and_gradients_match_reference(pair):
+    _check_loss_and_gradients(pair)
+
+
+def test_saved_route_gradients_match_reference(pair, monkeypatch):
+    """The card's policy applied on the CPU: ``FlashAttentionFn`` keeps the
+    plain forward's output and log-sum-exp (under the layers' remat the
+    recompute makes them again) and every backward takes the closed form of
+    the kernels' saved route; the loss and every gradient still match
+    ``jax.value_and_grad`` at the tolerances above."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    real_bwd, saved = fa_ops.flash_attention_bwd, []
+
+    def bwd(*args, **kw):
+        saved.append(kw.get("lse") is not None)
+        return real_bwd(*args, **kw)
+
+    monkeypatch.setattr(fa_ops, "saves_lse", lambda q, k, v: (
+        q.dtype == torch.float32 and fa_ops.route(q, k, v) == "rows"))
+    monkeypatch.setattr(fa_ops, "flash_attention_bwd", bwd)
+    _check_loss_and_gradients(pair)
+    assert len(saved) == pair[2].n_layers and all(saved)
+
+
+def _check_loss_and_gradients(pair):
     jc, params, pc, model = pair
     toks = _tokens(1)
     (want, parts), grads = jax.value_and_grad(jt.loss_fn, has_aux=True)(
