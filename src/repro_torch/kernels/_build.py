@@ -103,6 +103,35 @@ def build_all() -> dict[Path, dict]:
     return {src: fut.result() for src, fut in futures.items()}
 
 
+_PTXAS_FUNCTION = re.compile(
+    r"(?:Compiling entry function '([^']+)'|Function properties for (\S+))")
+
+
+def ptxas_functions(log: str) -> dict[str, list[str]]:
+    """ptxas' ``-v`` report in a build log, by function: ``{mangled name:
+    its lines}``, each line from the one that names the function up to the
+    next that names another (its registers, stack frame and spills)."""
+    report: dict[str, list[str]] = {}
+    lines = None
+    for ln in log.splitlines():
+        m = _PTXAS_FUNCTION.search(ln)
+        if m:
+            lines = report.setdefault(m.group(1) or m.group(2), [])
+        if lines is not None:
+            lines.append(ln.strip())
+    return report
+
+
+def spills(log: str, name: str = "") -> tuple[int, list[str]]:
+    """``(functions, spill lines)``: how many functions of a build log whose
+    mangled name holds ``name`` ptxas reported, and their lines that report
+    a spill store or load of more than 0 bytes."""
+    found = {f: ls for f, ls in ptxas_functions(log).items() if name in f}
+    bad = [ln for ls in found.values() for ln in ls if "spill" in ln
+           and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    return len(found), bad
+
+
 _LOADED: dict[Path, ctypes.CDLL] = {}
 
 

@@ -51,14 +51,35 @@
 //   hd*sizeof(T)/16 lanes), and the G query rows of the kv head share
 //   every load.  Partial (m, l, acc) go to fp32 scratch; a second kernel
 //   merges a slot's chunks by log-sum-exp and writes q's type.
-// * rows (everything else: fp32 prefill, hd 16/32).  Scalar fp32 FMA: a
-//   block owns 64 query rows of one kv head and walks 64-key tiles in
-//   shared memory with an online softmax, 4x4 register tiles.  Tiles at or
-//   past kv_len, past the block's last causal position and wholly before
-//   its window are skipped.  Given an `lse` pointer (the training path's
-//   forward), it also writes each row's log-sum-exp m + log(l), fp32
-//   [B, Kh, Sq * G] (0 for a row with no admissible key), which the
-//   backward (flash_attention_bwd.cu) reads instead of recomputing it.
+// * rows (everything else: fp32 prefill and training, hd 16/32, bf16 the
+//   tc route does not take).  Bound by operations: 4*hd flops per
+//   admissible (query, key) pair on the fp32 FMA units (TF32 stays off),
+//   against ~4*hd bytes of k/v per key.  On those units the limit is
+//   shared memory: a warp's 16-byte read takes 4 of the SM's cycles
+//   whatever it broadcasts, so an a x b register tile of a product runs
+//   at most ab / (4(a + b)) of the FMA rate.  A block of four warps owns
+//   64 query rows of one (batch, kv head) (128 at hd 16 and 32), each warp
+//   16 (32) of them, so a row's online-softmax max reduces inside its warp
+//   (the sums wait for the end).  S = Q K^T runs as 8x4 register tiles
+//   (8x8 at hd 32, 4x4 at hd 128) from 16-byte reads along hd of Q and K
+//   tiles stored [rows][hd + 4] floats; the warp writes its exponentials P
+//   into its own key-major strip [keys][rows + 4] and, after one
+//   __syncwarp, O += P V runs as 8 rows x 4 columns a lane (8x8 at hd
+//   128, 4x4 at hd 16) from 16-byte reads of P and V.  K and V tiles of 64
+//   keys (32 at hd 16 and 128) load by cp.async into two stages, tile t+1
+//   while tile t computes: one block barrier a tile, whose fixed work (the
+//   barrier, the max's shuffles, the rescale of O) 64 keys halve.  A warp
+//   skips a tile none of its rows can see and masks only a
+//   tile that straddles the causal, window or kv_len edge; the softcap
+//   branch sits outside the element loop; exp2 with log2(e) folded into
+//   the score's scale; no row is divided by G where G is 1.  Blocks run
+//   the heaviest row tiles (the last causal ones) first.  bf16 operands
+//   are widened to fp32 on staging, through registers.  Given an `lse`
+//   pointer (the training path's forward), it also writes each row's
+//   log-sum-exp m + log(l) in natural log, fp32 [B, Kh, Sq * G] (0 for a
+//   row with no admissible key), which the backward
+//   (flash_attention_bwd.cu) reads instead of recomputing it.  No
+//   atomics: the output is the same bit for bit from call to call.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,7 +96,9 @@ namespace {
 using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;   // rows and split blocks
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kThreads = 256;   // split blocks
 
 // ------------------------------------------------------------ loads, stores
 
@@ -84,227 +107,19 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// 4 consecutive elements as floats; p is aligned to 4 elements
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ float capped(float s, float softcap) {
-  return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
+// 4 consecutive elements; p is aligned to 4 elements
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
 }
-
-__device__ __forceinline__ bool admissible(int j, int pos, int kv_end,
-                                           int window) {
-  return j < kv_end && j <= pos && j > pos - window;
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
 }
-
-// offset of q/out row (b, sq, kh, g) and of k/v row (b, j, kh)
-__device__ __forceinline__ size_t q_off(int b, int sq, int kh, int g, int Sq,
-                                        int Kh, int G, int hd) {
-  return ((((size_t)b * Sq + sq) * Kh + kh) * G + g) * hd;
-}
-__device__ __forceinline__ size_t kv_off(int b, int j, int kh, int Skv,
-                                         int Kh, int hd) {
-  return (((size_t)b * Skv + j) * Kh + kh) * hd;
-}
-
-// -------------------------------------------------------------- rows kernel
-
-constexpr int kBQ = 64;    // query rows per block
-constexpr int kBKV = 64;   // keys per tile
-
-template <int HD>
-__host__ __device__ constexpr int rows_k_floats() {
-  // the K tile (padded rows) and, after the scores, the P tile share it
-  return kBKV * (HD + 1) > kBQ * (kBKV + 1) ? kBKV * (HD + 1)
-                                            : kBQ * (kBKV + 1);
-}
-
-template <int HD>
-__host__ __device__ constexpr size_t rows_smem_bytes() {
-  return sizeof(float) * (kBQ * HD + rows_k_floats<HD>() + kBKV * HD);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ q_start,
-                 const int32_t* __restrict__ kv_len, T* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Skv, int Kh, int G,
-                 int window, float softcap, float scale) {
-  constexpr int DC = HD / 16;               // output dims per thread
-  constexpr int KS = HD + 1;                // padded K row: no bank conflicts
-  constexpr int PS = kBKV + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;                         // [kBQ][HD], pre-scaled
-  float* Ks = Qs + kBQ * HD;                // [kBKV][KS]; then P [kBQ][PS]
-  float* Vs = Ks + rows_k_floats<HD>();     // [kBKV][HD]
-
-  const int b = blockIdx.z, kh = blockIdx.y, row0 = blockIdx.x * kBQ;
-  const int R = Sq * G;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int qs = q_start[b];
-  const int kv_end = min(kv_len[b], Skv);
-
-  for (int e = tid * 4; e < kBQ * HD; e += kThreads * 4) {
-    const int r = e / HD, d = e % HD, row = row0 + r;
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < R) {
-      load4(q + q_off(b, row / G, kh, row % G, Sq, Kh, G, HD) + d, t);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Qs[r * HD + d + i] = t[i] * scale;
-  }
-
-  int pos[4];
-  bool live[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    live[i] = row < R;
-    pos[i] = qs + (live[i] ? row / G : 0);
-  }
-  // keys this block can need: up to its last row's position, from its
-  // first row's window start, below kv_len
-  const int last_row = min(row0 + kBQ, R) - 1;
-  const int kv_hi = min(kv_end, qs + last_row / G + 1);
-  const int first_pos = qs + row0 / G;
-  const int kv_lo = (max(0, first_pos - window + 1) / kBKV) * kBKV;
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += kBKV) {
-    __syncthreads();  // the last tile's P and V are read
-    for (int e = tid * 4; e < kBKV * HD; e += kThreads * 4) {
-      const int j = e / HD, d = e % HD;
-      float tk[4] = {0.f, 0.f, 0.f, 0.f}, tv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (kv0 + j < kv_hi) {
-        const size_t off = kv_off(b, kv0 + j, kh, Skv, Kh, HD) + d;
-        load4(k + off, tk);
-        load4(v + off, tv);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Ks[j * KS + d + i] = tk[i];
-        Vs[j * HD + d + i] = tv[i];
-      }
-    }
-    __syncthreads();
-
-    // scores of rows ty*4+i against keys tx+16c
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * HD + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool ok[4];
-      float mt = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ok[c] = live[i] && admissible(kv0 + tx + 16 * c, pos[i], kv_hi,
-                                      window);
-        s[i][c] = ok[c] ? capped(s[i][c], softcap) : kNegInf;
-        mt = fmaxf(mt, s[i][c]);
-      }
-      // the 16 lanes of a row are one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      corr[i] = __expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = ok[c] ? __expf(s[i][c] - m_new) : 0.f;
-        rs += s[i][c];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr[i] + rs;
-      m[i] = m_new;
-    }
-    __syncthreads();  // every thread is done reading K
-    float* Ps = Ks;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) Ps[(ty * 4 + i) * PS + tx + 16 * c] = s[i][c];
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr[i];
-#pragma unroll 4
-    for (int j = 0; j < kBKV; ++j) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = Vs[j * HD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row < R) {
-      const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      T* o = out + q_off(b, row / G, kh, row % G, Sq, Kh, G, HD);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) store(o + tx + 16 * c, acc[i][c] * inv);
-      // m and l are the same on the 16 lanes of the row
-      if (lse != nullptr && tx == 0) {
-        lse[((size_t)b * Kh + kh) * R + row] =
-            l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------ split route
-
-constexpr int kSplitKeys = 256;   // keys per chunk (ops.py SPLIT_KEYS)
-constexpr int kMaxRows = 8;       // query rows per (batch, kv head)
-constexpr int kWarps = kThreads / 32;
-constexpr int kCombineThreads = 128;
 
 // 16 bytes of the cache, read through the non-coherent path (the cache is
 // not written during the launch), and unpacked to floats where used
@@ -326,6 +141,416 @@ __device__ __forceinline__ void unpack16(const uint4& t, float* o,
     o[2 * i + 1] = f.y;
   }
 }
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float capped(float s, float softcap) {
+  return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
+}
+
+__device__ __forceinline__ bool admissible(int j, int pos, int kv_end,
+                                           int window) {
+  return j < kv_end && j <= pos && j > pos - window;
+}
+
+// offset of q/out row (b, sq, kh, g) and of k/v row (b, j, kh)
+__device__ __forceinline__ size_t q_off(int b, int sq, int kh, int g, int Sq,
+                                        int Kh, int G, int hd) {
+  return ((((size_t)b * Sq + sq) * Kh + kh) * G + g) * hd;
+}
+__device__ __forceinline__ size_t kv_off(int b, int j, int kh, int Skv,
+                                         int Kh, int hd) {
+  return (((size_t)b * Skv + j) * Kh + kh) * hd;
+}
+
+// The position offset of row r = sq * G + g of a (batch, kv head), r / G,
+// without the division where G is 1 (every head its own kv head).
+__device__ __forceinline__ int row_pos(int r, int G) {
+  return G == 1 ? r : r / G;
+}
+
+// -------------------------------------------------------------- rows kernel
+
+constexpr int kRowsThreads = 128;
+constexpr int kRowsWarps = kRowsThreads / 32;
+
+// The rows route's tiles: a warp owns WR query rows, a step walks KT keys.
+// A lane holds an SR x kSC tile of the scores (rows SR * (lane / kSKG) + i
+// of the warp's, keys lane % kSKG + kSKG * c of the step's) and a kOR x
+// 4 OV tile of the output (rows kOR * (lane / kOCG) + r, columns
+// 4 * (lane % kOCG + kOCG * h) + e).  The 8 lanes of a quarter-warp read
+// 8 distinct rows of K, or 8 consecutive float4s of a V row, in distinct
+// banks, and broadcast their Q and P reads.
+template <int HD, int WR, int KT, int SR, int OV>
+struct RowsTileOf {
+  static constexpr int kWR = WR, kKT = KT, kSR = SR, kOV = OV;
+  static constexpr int kBQ = kRowsWarps * WR;   // query rows of a block
+  static constexpr int kLD = HD + 4;            // a row of the Q, K, V tiles
+  static constexpr int kLDW = WR + 4;           // a key of a warp's P strip
+  static constexpr int kSKG = 32 / (WR / SR);   // key groups of a score tile
+  static constexpr int kSC = KT / kSKG;
+  static constexpr int kOCG = HD / (4 * OV);    // column groups of the output
+  static constexpr int kOR = WR * kOCG / 32;
+  // a lane's score rows are its output rows: the rescale stays in registers
+  static constexpr bool kSame = kSR == kOR && kSKG == kOCG;
+  // Q, two stages of K and V, and each warp's P strip and row factors
+  static constexpr size_t kSmem =
+      sizeof(float) *
+      (kBQ * kLD + 4 * KT * kLD + kRowsWarps * (KT * kLDW + WR));
+  static_assert((WR / SR) * kSKG == 32 && kSC * kSKG == KT, "score tile");
+  static_assert(32 % kOCG == 0 && kOR * (32 / kOCG) == WR, "output tile");
+  static_assert(SR % 4 == 0 && kOR % 4 == 0, "P and factors as float4s");
+};
+
+template <int HD> struct RowsTile;
+// (WR, KT): score x output tiles a lane, shared memory a block
+//   hd 16:  (32, 32): 8x4 x 4x4,  39 KiB
+//   hd 32:  (32, 64): 8x8 x 8x4,  91 KiB
+//   hd 64:  (16, 64): 8x4 x 8x4, 105 KiB
+//   hd 128: (16, 32): 4x4 x 8x8, 109 KiB
+// Two blocks fit an SM at each.  At hd 64 on an H100, 32 rows a warp on
+// 32-key tiles (8x4 x 8x8) ran 4% slower, and on 64-key tiles (8x8 x 8x8)
+// spilled at 255 registers.
+template <> struct RowsTile<16> : RowsTileOf<16, 32, 32, 8, 1> {};
+template <> struct RowsTile<32> : RowsTileOf<32, 32, 64, 8, 1> {};
+template <> struct RowsTile<64> : RowsTileOf<64, 16, 64, 8, 1> {};
+template <> struct RowsTile<128> : RowsTileOf<128, 16, 32, 4, 2> {};
+
+// Rows [r0, r0 + n) of one (b, kh) of q into dst [n][HD + 4] as floats;
+// zeros at or past R.  fp32 by cp.async; bf16 widened through registers.
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* q, int n,
+                                           int b, int kh, int r0, int R,
+                                           int Sq, int Kh, int G) {
+  constexpr int C4 = HD / 4;
+  for (int e = threadIdx.x; e < n * C4; e += kRowsThreads) {
+    const int r = e / C4, c = e % C4, row = r0 + r;
+    const bool ok = row < R;
+    const int sq = row_pos(row, G);
+    const size_t off =
+        ok ? q_off(b, sq, kh, row - sq * G, Sq, Kh, G, HD) + 4 * c : 0;
+    cp_async16(dst + r * (HD + 4) + 4 * c, q + off, ok);
+  }
+}
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const __nv_bfloat16* q, int n,
+                                           int b, int kh, int r0, int R,
+                                           int Sq, int Kh, int G) {
+  constexpr int C8 = HD / 8;
+  for (int e = threadIdx.x; e < n * C8; e += kRowsThreads) {
+    const int r = e / C8, c = e % C8, row = r0 + r;
+    float f[8] = {};
+    if (row < R) {
+      const int sq = row_pos(row, G);
+      unpack16(load16(q + q_off(b, sq, kh, row - sq * G, Sq, Kh, G, HD) +
+                      8 * c),
+               f, __nv_bfloat16());
+    }
+    float* d = dst + r * (HD + 4) + 8 * c;
+    *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// Keys [j0, j0 + n) of one (b, kh) of k and v into dk, dv [n][HD + 4] as
+// floats; zeros at or past j_end (never read there).
+template <int HD>
+__device__ __forceinline__ void stage_keys(float* dk, const float* k,
+                                           float* dv, const float* v, int n,
+                                           int b, int kh, int j0, int j_end,
+                                           int Skv, int Kh) {
+  constexpr int C4 = HD / 4;
+  for (int e = threadIdx.x; e < n * C4; e += kRowsThreads) {
+    const int j = e / C4, c = e % C4;
+    const bool ok = j0 + j < j_end;
+    const size_t off = ok ? kv_off(b, j0 + j, kh, Skv, Kh, HD) + 4 * c : 0;
+    cp_async16(dk + j * (HD + 4) + 4 * c, k + off, ok);
+    cp_async16(dv + j * (HD + 4) + 4 * c, v + off, ok);
+  }
+}
+template <int HD>
+__device__ __forceinline__ void stage_keys(float* dk,
+                                           const __nv_bfloat16* k, float* dv,
+                                           const __nv_bfloat16* v, int n,
+                                           int b, int kh, int j0, int j_end,
+                                           int Skv, int Kh) {
+  constexpr int C8 = HD / 8;
+  for (int e = threadIdx.x; e < n * C8; e += kRowsThreads) {
+    const int j = e / C8, c = e % C8;
+    float fk[8] = {}, fv[8] = {};
+    if (j0 + j < j_end) {
+      const size_t off = kv_off(b, j0 + j, kh, Skv, Kh, HD) + 8 * c;
+      unpack16(load16(k + off), fk, __nv_bfloat16());
+      unpack16(load16(v + off), fv, __nv_bfloat16());
+    }
+    float* pk = dk + j * (HD + 4) + 8 * c;
+    float* pv = dv + j * (HD + 4) + 8 * c;
+    *reinterpret_cast<float4*>(pk) = make_float4(fk[0], fk[1], fk[2], fk[3]);
+    *reinterpret_cast<float4*>(pk + 4) =
+        make_float4(fk[4], fk[5], fk[6], fk[7]);
+    *reinterpret_cast<float4*>(pv) = make_float4(fv[0], fv[1], fv[2], fv[3]);
+    *reinterpret_cast<float4*>(pv + 4) =
+        make_float4(fv[4], fv[5], fv[6], fv[7]);
+  }
+}
+
+// Block i owns row tile row_tiles - 1 - i / (B * Kh) (heaviest first) of
+// kv head i % Kh, batch (i / Kh) % B.  Scores are kept in the log2 domain:
+// x = (q . k) * scale * log2(e), capped as c * tanh(x / c) with c the cap
+// times log2(e).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+attn_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int32_t* __restrict__ q_start,
+                 const int32_t* __restrict__ kv_len, T* __restrict__ out,
+                 float* __restrict__ lse, int B, int Sq, int Skv, int Kh,
+                 int G, int window, float softcap, float scale_log2,
+                 int row_tiles) {
+  using S = RowsTile<HD>;
+  constexpr int LD = S::kLD, LDW = S::kLDW, WR = S::kWR, KT = S::kKT;
+  constexpr int SR = S::kSR, SC = S::kSC, SKG = S::kSKG;
+  constexpr int OR = S::kOR, OV = S::kOV, OCG = S::kOCG;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Qs = smem;                            // [kBQ][LD]
+  float* Ks = Qs + S::kBQ * LD;                // [2 stages][KT][LD]
+  float* Vs = Ks + 2 * KT * LD;                // [2 stages][KT][LD]
+  // this warp's P of a step, key-major [KT][LDW], and a factor per row
+  float* Pw = Vs + 2 * KT * LD + warp * (KT * LDW + WR);
+  float* Cw = Pw + KT * LDW;
+  const int bh = B * Kh;
+  const int tile = row_tiles - 1 - (int)(blockIdx.x / bh);
+  const int b = (int)(blockIdx.x % bh) / Kh, kh = (int)(blockIdx.x % Kh);
+  const int R = Sq * G, row0 = tile * S::kBQ;
+  const int qs = q_start[b];
+  const int kv_end = min(kv_len[b], Skv);
+  stage_rows<HD>(Qs, q, S::kBQ, b, kh, row0, R, Sq, Kh, G);
+
+  // keys the block's rows can see: up to its last row's position, from its
+  // first row's window start, below kv_len
+  const int last_row = min(row0 + S::kBQ, R) - 1;
+  const int kv_hi = min(kv_end, qs + row_pos(last_row, G) + 1);
+  const long long lo = (long long)qs + row_pos(row0, G) - window + 1;
+  const int kv_lo = lo > 0 ? (int)(lo / KT) * KT : 0;
+  const int n_steps = kv_hi > kv_lo ? (kv_hi - kv_lo + KT - 1) / KT : 0;
+  if (n_steps > 0)
+    stage_keys<HD>(Ks, k, Vs, v, KT, b, kh, kv_lo, kv_hi, Skv, Kh);
+  cp_async_commit();
+
+  // this warp's rows: positions w_lo .. w_hi
+  const int w_first = row0 + warp * WR;
+  const bool w_live = w_first < R, w_whole = w_first + WR <= R;
+  const int w_lo = qs + row_pos(w_first, G);
+  const int w_hi = qs + row_pos(min(w_first + WR, R) - 1, G);
+  const int rg = lane / SKG, kg = lane % SKG;   // the score tile
+  const int tr = lane / OCG, td = lane % OCG;   // the output tile
+  const float* Qw = Qs + (warp * WR + rg * SR) * LD;
+  const float cap = softcap * kLog2e;
+
+  float m[SR], l[SR], acc[OR][4 * OV] = {};
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;   // over this lane's keys only, until the end
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    const int st = step & 1, kv0 = kv_lo + step * KT;
+    cp_async_wait<0>();
+    __syncthreads();  // this step's keys are in; the last step's are read
+    if (step + 1 < n_steps) {
+      stage_keys<HD>(Ks + (st ^ 1) * KT * LD, k, Vs + (st ^ 1) * KT * LD, v,
+                     KT, b, kh, kv0 + KT, kv_hi, Skv, Kh);
+    }
+    cp_async_commit();
+    // a step none of the warp's rows can see is skipped; one where each of
+    // them sees every key is not masked
+    if (!w_live || kv0 > w_hi ||
+        (long long)kv0 + KT - 1 <= (long long)w_lo - window) {
+      continue;
+    }
+    const bool edge = !(w_whole && kv0 + KT - 1 <= w_lo &&
+                        kv0 + KT <= kv_end &&
+                        (long long)kv0 > (long long)w_hi - window);
+    const float* Kt = Ks + st * KT * LD;
+    const float* Vt = Vs + st * KT * LD;
+
+    float s[SR][SC] = {};
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 kk[SC];
+#pragma unroll
+      for (int c = 0; c < SC; ++c)
+        kk[c] = *reinterpret_cast<const float4*>(Kt + (kg + SKG * c) * LD + d);
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(Qw + i * LD + d);
+#pragma unroll
+        for (int c = 0; c < SC; ++c) {
+          s[i][c] = fmaf(a.x, kk[c].x, s[i][c]);
+          s[i][c] = fmaf(a.y, kk[c].y, s[i][c]);
+          s[i][c] = fmaf(a.z, kk[c].z, s[i][c]);
+          s[i][c] = fmaf(a.w, kk[c].w, s[i][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int c = 0; c < SC; ++c) s[i][c] *= scale_log2;
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int c = 0; c < SC; ++c) s[i][c] = cap * tanhf(s[i][c] / cap);
+    }
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const int row = w_first + rg * SR + i;
+        const bool live = row < R;
+        const int pos = qs + (live ? row_pos(row, G) : 0);
+#pragma unroll
+        for (int c = 0; c < SC; ++c) {
+          if (!(live && admissible(kv0 + kg + SKG * c, pos, kv_hi, window)))
+            s[i][c] = -INFINITY;   // exp2 gives 0 against any finite max
+        }
+      }
+    }
+    float corr[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      float mt = s[i][0];
+#pragma unroll
+      for (int c = 1; c < SC; ++c) mt = fmaxf(mt, s[i][c]);
+      // a row's key lanes are SKG consecutive lanes
+#pragma unroll
+      for (int o = SKG / 2; o > 0; o >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_new = fmaxf(m[i], mt);
+      corr[i] = fast_exp2(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < SC; ++c) {
+        s[i][c] = fast_exp2(s[i][c] - m_new);
+        rs += s[i][c];
+      }
+      l[i] = fmaf(l[i], corr[i], rs);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int c = 0; c < SC; ++c)
+#pragma unroll
+      for (int u = 0; u < SR / 4; ++u) {
+        *reinterpret_cast<float4*>(Pw + (kg + SKG * c) * LDW + rg * SR +
+                                   4 * u) =
+            make_float4(s[4 * u][c], s[4 * u + 1][c], s[4 * u + 2][c],
+                        s[4 * u + 3][c]);
+      }
+    float f[OR];
+    if constexpr (S::kSame) {
+#pragma unroll
+      for (int r = 0; r < OR; ++r) f[r] = corr[r];
+      __syncwarp();   // the warp's P is written
+    } else {
+      if (kg == 0) {
+#pragma unroll
+        for (int i = 0; i < SR; ++i) Cw[rg * SR + i] = corr[i];
+      }
+      __syncwarp();   // the warp's P and factors are written
+#pragma unroll
+      for (int r = 0; r < OR; ++r) f[r] = Cw[tr * OR + r];
+    }
+#pragma unroll
+    for (int r = 0; r < OR; ++r)
+#pragma unroll
+      for (int e = 0; e < 4 * OV; ++e) acc[r][e] *= f[r];
+#pragma unroll 8
+    for (int j = 0; j < KT; ++j) {
+      float p[OR];
+#pragma unroll
+      for (int u = 0; u < OR / 4; ++u) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(Pw + j * LDW + tr * OR + 4 * u);
+        p[4 * u] = t.x; p[4 * u + 1] = t.y;
+        p[4 * u + 2] = t.z; p[4 * u + 3] = t.w;
+      }
+      float4 w[OV];
+#pragma unroll
+      for (int h = 0; h < OV; ++h)
+        w[h] = *reinterpret_cast<const float4*>(Vt + j * LD +
+                                                (td + OCG * h) * 4);
+#pragma unroll
+      for (int r = 0; r < OR; ++r)
+#pragma unroll
+        for (int h = 0; h < OV; ++h) {
+          acc[r][4 * h] = fmaf(p[r], w[h].x, acc[r][4 * h]);
+          acc[r][4 * h + 1] = fmaf(p[r], w[h].y, acc[r][4 * h + 1]);
+          acc[r][4 * h + 2] = fmaf(p[r], w[h].z, acc[r][4 * h + 2]);
+          acc[r][4 * h + 3] = fmaf(p[r], w[h].w, acc[r][4 * h + 3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // each row's sum over its key lanes; 1 / l to the output lanes
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int o = SKG / 2; o > 0; o >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+  float inv[OR];
+  if constexpr (S::kSame) {
+#pragma unroll
+    for (int r = 0; r < OR; ++r) inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  } else {
+    __syncwarp();   // the last step's factors are read
+    if (kg == 0) {
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+        Cw[rg * SR + i] = 1.f / fmaxf(l[i], 1e-30f);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < OR; ++r) inv[r] = Cw[tr * OR + r];
+  }
+  if (lse != nullptr && kg == 0) {
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = w_first + rg * SR + i;
+      if (row < R) {
+        lse[((size_t)b * Kh + kh) * R + row] =
+            l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < OR; ++r) {
+    const int row = w_first + tr * OR + r;
+    if (row < R) {
+      const int sq = row_pos(row, G);
+      T* o = out + q_off(b, sq, kh, row - sq * G, Sq, Kh, G, HD);
+#pragma unroll
+      for (int h = 0; h < OV; ++h) {
+        store4(o + (td + OCG * h) * 4,
+               make_float4(acc[r][4 * h] * inv[r], acc[r][4 * h + 1] * inv[r],
+                           acc[r][4 * h + 2] * inv[r],
+                           acc[r][4 * h + 3] * inv[r]));
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ split route
+
+constexpr int kSplitKeys = 256;   // keys per chunk (ops.py SPLIT_KEYS)
+constexpr int kMaxRows = 8;       // query rows per (batch, kv head)
+constexpr int kWarps = kThreads / 32;
+constexpr int kCombineThreads = 128;
 
 // The keys of chunk blockIdx.z of one (kv head, slot) against its R <= ROWS
 // query rows; writes the chunk's fp32 partial softmax state (m, l, acc)
@@ -529,7 +754,6 @@ constexpr int kTcStages = 2;
 constexpr int kTcThreads = 288;  // two consumer warpgroups + a producer warp
 constexpr int kTcRow = 128;      // bytes of one swizzled box row: 64 bf16
 constexpr int kTcBox = 128 * kTcRow;   // a 64-column box of 128 rows: 16 KB
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct TcAttnShape {
@@ -541,17 +765,6 @@ struct TcAttnShape {
   static constexpr int kSmem =
       1024 + kTile + kTcStages * kStage + 8 * (2 * kTcStages + 1);
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // Block i owns row tile n_tiles - 1 - i / (B * Kh) (heaviest first) of
 // kv head i % Kh, batch (i / Kh) % B.  Warpgroups 0 and 1 consume (rows
@@ -791,20 +1004,23 @@ int launch_rows(const void* q, const void* k, const void* v,
                 const void* q_start, const void* kv_len, void* out,
                 float* lse, int B, int Sq, int Skv, int Kh, int G, int window,
                 float softcap, cudaStream_t stream) {
-  const float scale = (float)(1.0 / sqrt((double)HD));
+  using S = RowsTile<HD>;
   static bool smem_set = false;  // above 48 KB needs the opt-in
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
         attn_rows_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)rows_smem_bytes<HD>());
+        (int)S::kSmem);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  const dim3 grid((Sq * G + kBQ - 1) / kBQ, Kh, B);
-  attn_rows_kernel<T, HD><<<grid, kThreads, rows_smem_bytes<HD>(), stream>>>(
+  const int row_tiles = (Sq * G + S::kBQ - 1) / S::kBQ;
+  const long long blocks = (long long)row_tiles * B * Kh;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  attn_rows_kernel<T, HD><<<(unsigned)blocks, kRowsThreads, S::kSmem,
+                            stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int32_t*)q_start,
-      (const int32_t*)kv_len, (T*)out, lse, Sq, Skv, Kh, G, window, softcap,
-      scale);
+      (const int32_t*)kv_len, (T*)out, lse, B, Sq, Skv, Kh, G, window,
+      softcap, (float)(kLog2e / sqrt((double)HD)), row_tiles);
   return (int)cudaGetLastError();
 }
 

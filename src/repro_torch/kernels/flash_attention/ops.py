@@ -8,8 +8,9 @@ stream, or raises; it never falls back.  ``route`` picks it before the
 launch, from dtype, shape and alignment alone: ``"split"`` (flash-decoding
 over 256-key chunks of the cache, then a log-sum-exp merge) for at most 8
 query rows per kv head, ``"tc"`` (TMA and wgmma tiles) for bf16 prefill,
-``"rows"`` (scalar fp32 FMA tiles) for the rest.  On the CPU it runs the
-plain version in ``ref.py``.
+``"rows"`` (fp32 FMA tiles: warp-owned query rows, 16-byte shared-memory
+reads, cp.async key stages) for the rest.  On the CPU it runs the plain
+version in ``ref.py``.
 
 Launch counts (``repro_torch.kernels.LAUNCHES``): ``flash_attention`` for
 every call, and ``flash_attention.tc``, ``.split`` or ``.rows`` for the

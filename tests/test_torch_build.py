@@ -60,3 +60,43 @@ def test_both_tensor_core_kernels_include_the_shared_header():
     assert len(sources) == 5
     for name in ("flash_attention", "grouped_matmul"):
         assert header in _build.local_headers(sources[name])
+
+
+# ptxas -v as nvcc prints it for one source: two instantiations of a
+# kernel (one spilling) and another kernel with a spill of its own
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116attn_rows_kernelIfLi64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116attn_rows_kernelIfLi64EEEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 576 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116attn_rows_kernelIfLi128EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116attn_rows_kernelIfLi128EEEvPKT_
+    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 576 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114attn_tc_kernelILi64EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114attn_tc_kernelILi64EEEvv
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers
+"""
+
+
+def test_ptxas_report_splits_a_build_log_by_function():
+    report = _build.ptxas_functions(_PTXAS_LOG)
+    assert len(report) == 3
+    rows64 = report["_ZN12_GLOBAL__N_116attn_rows_kernelIfLi64EEEvPKT_"]
+    assert rows64[0].startswith("ptxas info    : Compiling entry function")
+    assert rows64[-1] == ("ptxas info    : Used 168 registers, used 1 "
+                          "barriers, 576 bytes cmem[0]")
+
+
+def test_spills_are_told_apart_by_function_name():
+    n, bad = _build.spills(_PTXAS_LOG, "attn_rows_kernel")
+    assert n == 2
+    assert bad == ["16 bytes stack frame, 12 bytes spill stores, 12 bytes "
+                   "spill loads"]
+    # the tc kernel's spill decides nothing about the rows kernels, and the
+    # whole log counts all three
+    assert _build.spills(_PTXAS_LOG, "attn_tc_kernel")[0] == 1
+    assert len(_build.spills(_PTXAS_LOG)[1]) == 2
+    assert _build.spills("", "attn_rows_kernel") == (0, [])

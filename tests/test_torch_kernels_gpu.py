@@ -121,17 +121,40 @@ def _attention_launch(q, k, v, q_start, kv_len, want_route, **kw):
 @pytest.mark.parametrize("case", [
     "tc_ragged", "tc_chunk", "tc_window_softcap", "tc_g2_hd64", "tc_g4",
     "split_kv_len_1", "split_kv_len_skv", "split_empty_chunks",
-    "split_fp32", "split_window_softcap"])
+    "split_fp32", "split_window_softcap",
+    "rows_ragged", "rows_chunk", "rows_window_1", "rows_window_softcap",
+    "rows_g4_hd16", "rows_hd32", "rows_hd128", "rows_bf16_hd32"])
 def test_attention_route_matches_plain_version(card, case):
     """Each route of the redesigned kernel against the plain version:
     ``tc`` on a ragged Sq (not a multiple of 128), a chunk at q_start > 0,
     a window with a softcap, G = 2 at head_dim 64, G = 4 (32 query
     positions a row tile); ``split`` with kv_len 1,
-    kv_len = Skv, a kv_len that leaves chunks empty, fp32, a window."""
+    kv_len = Skv, a kv_len that leaves chunks empty, fp32, a window;
+    ``rows`` (fp32 at head_dim 64 unless named) on a ragged Sq (not a
+    multiple of its 64- or 128-row tiles), a chunk at q_start > 0, a
+    window of 1 (each row sees only itself), a window shorter than a key
+    tile with a softcap, G = 4 at head_dim 16, head_dim 32 and 128, and
+    bf16 at head_dim 32 (widened on staging)."""
     g = torch.Generator(device=card).manual_seed(len(case))
     B, Skv, K, G, hd = 2, 700, 4, 1, 128
     dtype, window, cap = torch.bfloat16, None, None
-    if case == "tc_ragged":
+    if case.startswith("rows"):
+        dtype, hd, Sq, q_start = torch.float32, 64, 300, torch.tensor([0, 0])
+        if case == "rows_chunk":
+            Sq, q_start = 150, torch.tensor([100, 437])
+        elif case == "rows_window_1":
+            q_start, window = torch.tensor([0, 250]), 1
+        elif case == "rows_window_softcap":
+            Sq, q_start, window, cap = 333, torch.tensor([0, 250]), 20, 30.0
+        elif case == "rows_g4_hd16":
+            Sq, q_start, G, hd = 100, torch.tensor([0, 350]), 4, 16
+        elif case == "rows_hd32":
+            hd = 32
+        elif case == "rows_hd128":
+            q_start, hd = torch.tensor([0, 333]), 128
+        elif case == "rows_bf16_hd32":
+            dtype, hd, q_start = torch.bfloat16, 32, torch.tensor([0, 111])
+    elif case == "tc_ragged":
         Sq, q_start = 300, torch.tensor([0, 0])
     elif case == "tc_chunk":
         Sq, q_start = 200, torch.tensor([100, 437])
@@ -165,27 +188,32 @@ def test_attention_route_matches_plain_version(card, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", ["tc", "split"])
+@pytest.mark.parametrize("which", ["tc", "split", "rows"])
 def test_attention_never_reads_nan_past_kv_len(card, which):
     """OLMoE's shapes (16 kv heads, G = 1, head_dim 128, a 4096-row cache
     longer than kv_len) with every cache row at or past kv_len holding
     NaN: the output is finite and equal to the kernel's output on the same
     cache with those rows zeroed.  (The plain version is no oracle here:
     its einsum over all Skv rows turns 0 * NaN into NaN.)  The card's twin
-    of ``test_keys_past_kv_len_are_never_read``."""
+    of ``test_keys_past_kv_len_are_never_read``; ``rows`` in fp32, with
+    two slots whose kv_len ends inside a key tile."""
     g = torch.Generator(device=card).manual_seed(7)
     Skv, K, hd = 4096, 16, 128
+    dtype, tol = torch.bfloat16, 2e-2
     if which == "tc":
         B, Sq = 1, 1000
         q_start = torch.tensor([0], device=card)
+    elif which == "rows":
+        B, Sq, dtype, tol = 2, 300, torch.float32, 2e-3
+        q_start = torch.tensor([0, 1003], device=card)
     else:
         B, Sq = 8, 1
         q_start = torch.tensor([5, 127, 128, 999, 1500, 2047, 3000, 4094],
                                device=card)
     kv_len = q_start + Sq
-    q = torch.randn(B, Sq, K, 1, hd, generator=g, device=card).bfloat16()
-    k = torch.randn(B, Skv, K, hd, generator=g, device=card).bfloat16()
-    v = torch.randn(B, Skv, K, hd, generator=g, device=card).bfloat16()
+    q = torch.randn(B, Sq, K, 1, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
     past = (torch.arange(Skv, device=card)[None, :]
             >= kv_len[:, None])[:, :, None, None]
     nan_k, nan_v = k.masked_fill(past, float("nan")), v.masked_fill(
@@ -196,8 +224,7 @@ def test_attention_never_reads_nan_past_kv_len(card, which):
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, want)
     ref = flash_attention_ref(q, zero_k, zero_v, q_start, kv_len)
-    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
-                               atol=2e-2)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
 # ------------------------------------------------------ K3 grouped matmul
@@ -1239,6 +1266,24 @@ def test_attention_rows_forward_lse_matches_plain_version(card, case):
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
     assert torch.equal(out, flash_attention(q, k, v, q_start, kv_len, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hd64", "hd16_g4", "hd32_g2_window",
+                                  "hd128_softcap"])
+def test_attention_rows_forward_is_bit_equal_over_two_calls(card, case):
+    """The rows route's output and log-sum-exp are the same bit for bit
+    from call to call (no atomics; the training path's exact resume
+    depends on it), and the output the same with or without the
+    log-sum-exp."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_lse
+    q, k, v, _, q_start, kv_len, kw = _bwd_case(card, case)
+    runs = [flash_attention_lse(q, k, v, q_start, kv_len, **kw)
+            for _ in range(2)]
+    alone = flash_attention(q, k, v, q_start, kv_len, **kw)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][0], alone)
 
 
 @pytest.mark.gpu
