@@ -8,8 +8,8 @@ Phases, each printing one JSON line:
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
 2. build   — every CUDA kernel of the port compiled with nvcc (sm_90a), one
              process per source, all started together, timed as set-up;
-             no ptxas spill in K1, K4 and the 8 instantiations of K2's
-             ``attn_rows_kernel``;
+             no ptxas spill in K1, K4 (forward and backward) and the 8
+             instantiations of K2's ``attn_rows_kernel``;
 3. kernel  — the WCOJ probe held against its plain PyTorch version on the
              card (exact equality), on its ``fence`` route (a walk down the
              CSR's search index) and its ``search`` route (a binary
@@ -138,7 +138,31 @@ Phases, each printing one JSON line:
              through a view of the same table one element past its base;
 19. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``;
-20. gnn    — the GNN family training on the card in float32 with TF32
+20. recsys_train — Wide & Deep at its full ``CONFIG`` trained on the card
+             (the serving model freed first; random fp32 weights from a
+             seeded generator, the reference's ``adam_cfg()``) at
+             ``train_batch`` (65,536 examples from two seeded host
+             batches, alternating): one warm-up step, 5 steps timed with
+             CUDA events, one profiled step.  Gates: every loss and
+             gradient norm finite; exactly one K4 forward (on ``vec``) and
+             one K4 backward (``embedding_bag_bwd``) launch a step; peak
+             memory over the timed steps at most 64e9 bytes (the table's
+             gradient is dense, so the AdamW update walks 59 GB of
+             weights, gradients and moments in pieces); the first MLP
+             layer and every table row the batches name move; ``items``,
+             ``user_proj`` and the table rows no batch names keep their
+             bits (digests);
+21. kernel — K4's backward on the call captured in the warm-up step (the
+             deep tower's input gradient, 40 bags a row of row stride
+             1,293, scaled to unit RMS) against its plain version (1e-4),
+             bit-equal over two calls, timed beside one ``index_add_``
+             into a zeroed table gradient and its bytes bound, with the
+             split into the zero fill, the sort and the two kernels;
+22. check  — Wide & Deep ``SMOKE`` training step 0 on cuda and on cpu from
+             the same weights: loss, gradient norm and the table's
+             gradient at the recsys tolerance; the AdamW update in pieces
+             and of whole tensors on the card, bit-equal;
+23. gnn    — the GNN family training on the card in float32 with TF32
              off, each architecture through its full-size bundle (the
              published widths; random weights from a seeded generator on
              the card) and the reference's AdamW: GAT, SchNet, NequIP and
@@ -152,7 +176,7 @@ Phases, each printing one JSON line:
              moving the weights, the molecule losses equal to the port's
              on the CPU, one profiled molecule step each; then a summary
              with the runs the card does not take (``reduced``);
-21. lm_train — LM training through ``repro_torch.launch.train.train`` in
+24. lm_train — LM training through ``repro_torch.launch.train.train`` in
              float32 with TF32 off, into a temporary checkpoint directory:
              ``lm100m`` (12 layers, d_model 768, vocab 32,768) at batch 8 x
              seq 1,024 for 20 steps (checkpoints at 10 and 20), then
@@ -173,7 +197,7 @@ Phases, each printing one JSON line:
              all on ``simt``.  Then 5 steps timed with CUDA events, peak
              memory, TFLOP/s of ``train_flops``, one profiled step, and the
              checkpoint's save and restore seconds;
-22. kernel — K2's forward on its ``rows`` route at the training shape
+25. kernel — K2's forward on its ``rows`` route at the training shape
              (``lm100m`` layer 0, fp32), beside SDPA with an explicit mask
              and with ``is_causal``, at most 0.55 ms (every ``rows``
              phase also holds its log-sum-exp to the plain version's at
@@ -192,7 +216,7 @@ Phases, each printing one JSON line:
              operands cast to bf16 (the forward on ``tc``, the backward
              recomputing), held at 2e-2; then K2's ``rows`` forward at
              ``lm-moe``'s layer 0 (head_dim 32);
-23. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
+26. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
              w2 products captured the same way (``dy`` at unit RMS): both
              gradients against autograd through the plain version (1e-4),
              dw bit-equal over two calls, and the three products as the
@@ -208,6 +232,7 @@ last line, as does a run with no CUDA device or without the repository's
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -258,6 +283,15 @@ CHECK_RTOL, CHECK_ATOL = 2e-3, 2e-4
 # tolerance, and the float32 cuda-vs-cpu tolerances of the SMOKE check
 RECSYS_RUNS = {"serve_p99": 50, "serve_bulk": 3, "retrieval_cand": 20}
 BAG_TOL = 1e-4
+# Wide & Deep training at CONFIG: timed steps after one warm-up, the
+# host batches they cycle through (building one of 65,536 takes seconds),
+# the peak device memory allowed over the steps (59.1 GB of weights,
+# gradients and moments, activations, the update's pieces), and the piece
+# of the bounded-versus-whole update check on SMOKE
+RECSYS_TRAIN_STEPS = 5
+RECSYS_TRAIN_BATCHES = 2
+RECSYS_TRAIN_PEAK_BYTES = 64e9
+RECSYS_CHECK_PIECE = 4096
 # K1's gates: ms queued on the fence route, and the captured calls against
 # the search route in the same run (the walk is bound by issue where the
 # CSR sits in L2; see PERF.md section 6)
@@ -1989,7 +2023,8 @@ def profile_step(step, *args) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kinds = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
-                 "grouped_matmul": 0.0, "embedding_bag": 0.0, "matmul": 0.0,
+                 "grouped_matmul": 0.0, "embedding_bag": 0.0,
+                 "embedding_bag_bwd": 0.0, "matmul": 0.0, "optimizer": 0.0,
                  "other": 0.0}
         kernels, other, copies = 0, [], []
         for ev in prof.key_averages():
@@ -2000,10 +2035,14 @@ def profile_step(step, *args) -> dict:
             kind = ("flash_attention_bwd" if "attn_bwd" in name
                     else "flash_attention" if "attn_" in name
                     else "grouped_matmul" if "gmm_kernel" in name
+                    else "embedding_bag_bwd" if "bag_bwd_" in name
                     else "embedding_bag" if "embedding_bag_kernel" in name
                     else "matmul" if any(s in name for s in (
                         "gemm", "gemv", "nvjet", "cutlass", "xmma",
                         "cublas"))
+                    # the AdamW update's torch._foreach_* launches
+                    else "optimizer" if "multi_tensor_apply" in name
+                    or "foreach" in name
                     else "other")
             kinds[kind] += ms
             if kind == "other":
@@ -2521,6 +2560,359 @@ def recsys_check() -> dict:
                 f"{errs[shape]})")
     return {"phase": "check", "model": cfg.name, "dtype": str(cfg.dtype),
             "max_abs_err": errs, "rtol": RECSYS_RTOL, "atol": RECSYS_ATOL,
+            "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------------------------ recsys_train
+
+def bits_digest(t, keep=None, rows_per: int = 1 << 19) -> int:
+    """A 64-bit digest of the bit patterns of ``t``'s rows (``keep``: a
+    bool mask of the rows it covers, else all): each value's bits times an
+    odd weight of its column, each row's sum mixed with its index, summed
+    with int64 wrap-around, ``rows_per`` rows at a time (a few hundred MB
+    of temporaries).  A value whose bits change changes the digest, but for
+    a collision."""
+    import torch
+    rows = t.detach().reshape(t.shape[0], -1) if t.dim() > 1 \
+        else t.detach().reshape(-1, 1)
+    dev = t.device
+    w = torch.arange(1, 2 * rows.shape[1], 2, dtype=torch.int64, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for a in range(0, rows.shape[0], rows_per):
+        blk = rows[a:a + rows_per].view(torch.int32).to(torch.int64)
+        idx = torch.arange(a, a + blk.shape[0], dtype=torch.int64,
+                           device=dev)
+        h = (blk * w).sum(1) ^ (idx * 0x2545F491)
+        if keep is not None:
+            h = h * keep[a:a + blk.shape[0]]
+        total += h.sum()
+    return int(total)
+
+
+def recsys_train_path() -> tuple[dict, dict]:
+    """Wide & Deep ``CONFIG`` trained on the card at ``train_batch``
+    (65,536 examples) through ``make_step(cfg, "train")`` with the
+    reference's ``adam_cfg()``: one warm-up step, which captures the K4
+    backward's call, ``RECSYS_TRAIN_STEPS`` steps timed with CUDA events
+    (their peak memory gated), one profiled step; the batches cycle
+    through ``RECSYS_TRAIN_BATCHES`` seeded host batches.  Returns the
+    phase record and the captured call (ids, the deep tower's input
+    gradient on the host, the table's rows)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import wide_deep as wd
+    from repro_torch.models import recsys
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, spec = wd.CONFIG, wd.SHAPES["train_batch"]
+    B = spec.dims["batch"]
+    t0 = time.perf_counter()
+    model = recsys.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    ost = opt.init(wd.adam_cfg(), model.parameters())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = wd.make_step(cfg, "train")
+    build_s, batches = [], []
+    for i in range(RECSYS_TRAIN_BATCHES):
+        t = time.perf_counter()
+        host = wd.host_batch(cfg, spec, seed=SEED + i)
+        build_s.append(time.perf_counter() - t)
+        batches.append({k: torch.as_tensor(v, device="cuda")
+                        for k, v in host.items()})
+    del host
+    # what must move and what must keep its bits: the table rows the
+    # batches name (a copy on the host), the rest of the table, the items
+    # and the user projection (digests), the first MLP layer
+    touched = torch.zeros(cfg.total_rows, dtype=torch.bool, device="cuda")
+    for b in batches:
+        gidx = recsys.table_ids(b["sparse_ids"], model.offsets)
+        touched[gidx[gidx >= 0].long()] = True
+    del gidx
+    rows = touched.nonzero().squeeze(1)
+    rows_before = model.table[rows].cpu()
+    digests = {"items": bits_digest(model.items),
+               "user_proj": bits_digest(model.user_proj),
+               "untouched_table_rows": bits_digest(model.table, ~touched)}
+    mlp0 = model.mlp[0].w.detach().clone()
+
+    captured = {}
+    real_grad = recsys.bag_grad
+
+    def bag_grad(ids, grad, V):
+        if not captured:
+            # the ids, and the deep tower's input gradient with its row
+            # stride (the bag columns are a view of it), on the host
+            full = torch.empty((grad.shape[0], grad.stride(0)),
+                               dtype=grad.dtype)
+            full[:, :grad.shape[1]] = grad.cpu()
+            captured.update(ids=ids.cpu(), grad=full, cols=grad.shape[1],
+                            V=V)
+        return real_grad(ids, grad, V)
+
+    kernels.reset_launches()
+    recsys.bag_grad = bag_grad
+    try:
+        t = time.perf_counter()
+        model, ost, m = step(model, ost, batches[0])
+        torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        recsys.bag_grad = real_grad
+    require(set(captured) == {"ids", "grad", "cols", "V"},
+            "recsys_train: the warm-up step made no K4 backward call")
+    metrics = [m]
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1, 1 + RECSYS_TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        model, ost, m = step(model, ost, batches[i % len(batches)])
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e))
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    steps = 1 + RECSYS_TRAIN_STEPS
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"recsys_train: non-finite loss {losses} or grad norm {norms}")
+    want = {"embedding_bag": steps, "embedding_bag.vec": steps,
+            "embedding_bag_bwd": steps}
+    require(launches == want, f"recsys_train: launches {launches}, "
+                              f"expected {want} ({steps} steps)")
+    require(peak <= RECSYS_TRAIN_PEAK_BYTES,
+            f"recsys_train: peak memory {peak} > {RECSYS_TRAIN_PEAK_BYTES}")
+    profiled = profile_step(step, model, ost, batches[0])
+    moved = (model.table.detach()[rows].cpu() != rows_before).any(dim=1)
+    require(bool(moved.all()), f"recsys_train: {int((~moved).sum())} of "
+                               f"{len(rows)} touched table rows kept their "
+                               f"bits")
+    require(not torch.equal(model.mlp[0].w.detach(), mlp0),
+            "recsys_train: the first MLP layer did not move")
+    after = {"items": bits_digest(model.items),
+             "user_proj": bits_digest(model.user_proj),
+             "untouched_table_rows": bits_digest(model.table, ~touched)}
+    require(after == digests, f"recsys_train: weights no batch reaches "
+                              f"moved: digests {digests} -> {after}")
+    med = statistics.median(times)
+    flops = wd.model_flops(cfg, spec)
+    n_params = sum(p.numel() for p in model.parameters())
+    rec = {"phase": "recsys_train", "model": cfg.name,
+           "dtype": str(cfg.dtype), "params": n_params - 1, "batch": B,
+           "adam": dataclasses.asdict(wd.adam_cfg()),
+           "update_piece": opt.PIECE, "init_s": init_s,
+           "host_build_s": build_s, "warmup_ms": warmup_ms,
+           "step_ms": times, "step_ms_median": med,
+           "step_ms_p90": float(np.percentile(times, 90)),
+           "examples_per_s": B / (med * 1e-3), "model_flops": flops,
+           "tflops_per_s": flops / (med * 1e-3) / 1e12,
+           "loss": losses, "grad_norm": norms,
+           "launches": launches, "launches_per_step": {
+               k: v // steps for k, v in want.items()},
+           "max_memory_allocated": peak,
+           "peak_limit": RECSYS_TRAIN_PEAK_BYTES,
+           "touched_rows": len(rows), "touched_rows_moved": True,
+           "untouched_bits_kept": list(digests), "profiled": profiled}
+    del model, ost, batches, touched, rows, rows_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, captured
+
+
+def bag_bwd_phase(label: str, ids, grad, V: int, reps: int = 10) -> dict:
+    """K4's backward on the call captured in a training step: the bag
+    gradient scaled to unit RMS (the backward is linear in it; a loss
+    averaged over 65,536 examples leaves it ~1e-5), against its plain
+    version run on the fp64 gradient (1e-4, compared a block of rows at a
+    time: the fp32 plain version's atomic sums of up to ~53k slots stray
+    by most of the tolerance by themselves where a row's terms cancel, so
+    its distance is only recorded), one launch a call and bit-equal over
+    two calls; timed one call at a time (``kernel_ms_single``) and in batches
+    of 3 (``kernel_ms``), split into the wrapper's zero fill, its sort and
+    the two kernels, beside one ``index_add_`` into a zeroed ``[V, D]`` from
+    slot gradients gathered before the timing (the yardstick) and the
+    bytes bound: the dense gradient written once, the ids and the bag
+    gradients read once."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    N, L = ids.shape
+    D = grad.shape[1] * grad.shape[0] // N
+    grad.div_(grad.square().mean().sqrt())          # unit RMS, in place
+    before = kernels.LAUNCHES.get("embedding_bag_bwd", 0)
+    got = ops.embedding_bag_backward(ids, grad, V)
+    again = ops.embedding_bag_backward(ids, grad, V)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES.get("embedding_bag_bwd", 0) == before + 2,
+            f"{label}: {kernels.LAUNCHES.get('embedding_bag_bwd', 0) - before}"
+            f" launches for two calls")
+    require(torch.equal(got, again),
+            f"{label}: the gradients differ between two calls")
+    del again
+    block = 1 << 21
+
+    def distance(want) -> dict:
+        """max |got - want|, its largest share of the tolerance (|a - b|
+        <= tol + tol*|b|) and max |want|, a block of rows at a time."""
+        out = {"max_abs_err": 0.0, "worst_of_tol": 0.0, "want_max_abs": 0.0}
+        for a in range(0, V, block):
+            g, w = got[a:a + block].double(), want[a:a + block].double()
+            d = (g - w).abs()
+            for k, x in (("max_abs_err", d),
+                         ("worst_of_tol", d / (BAG_TOL + BAG_TOL * w.abs())),
+                         ("want_max_abs", w.abs())):
+                out[k] = max(out[k], float(x.max()))
+        return out
+
+    rec = {**distance(embedding_bag_backward_ref(ids, grad.double(), V)),
+           "tol": BAG_TOL}
+    require(rec["worst_of_tol"] <= 1.0 and bool(torch.isfinite(got).all()),
+            f"{label}: kernel differs from the plain version on the fp64 "
+            f"gradient (max abs err {rec['max_abs_err']}, "
+            f"{rec['worst_of_tol']:.3f} of the tolerance)")
+    require(rec["want_max_abs"] >= 10 * BAG_TOL,
+            f"{label}: the largest plain gradient {rec['want_max_abs']} is "
+            f"below 10x the tolerance")
+    # the fp32 plain version's distance, recorded (no gate: see above)
+    rec["plain_fp32"] = distance(embedding_bag_backward_ref(ids, grad, V))
+    del got
+    flat = ids.reshape(-1)
+    valid = (flat >= 0) & (flat < V)
+    _, counts = torch.unique(flat[valid], return_counts=True)
+    slots = int(valid.sum())
+    nbytes = V * D * 4 + 4 * ids.numel() + 4 * N * D
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = slots * D / SCALAR_OPS_PER_S * 1e3
+
+    def kernel():
+        return ops.embedding_bag_backward(ids, grad, V)
+
+    kernel_ms = cuda_ms(kernel, reps, batch=3)
+    single_ms = cuda_ms(kernel, reps)
+    # the split: the zero fill, the sort, the two kernels alone
+    keys = torch.where(valid, flat, V)
+    zero_ms = cuda_ms(lambda: torch.zeros((V, D), device=ids.device), reps)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), reps)
+    skeys, order = torch.sort(keys, stable=True)
+    out = torch.zeros((V, D), device=ids.device)
+    partial = torch.empty((2 * (-(-ids.numel() // ops.BWD_CHUNK)), D),
+                          device=ids.device)
+    fn = ops._bwd_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (skeys.data_ptr(), order.data_ptr(), grad.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), ids.numel(), L, V, D,
+            N // grad.shape[0], grad.stride(0), ops.BWD_CHUNK, stream)
+    kernels_ms = cuda_ms(lambda: require(fn(*args) == 0,
+                                         f"{label}: launch failed"), reps)
+    del out, partial, skeys, order, keys
+    plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(ids, grad, V),
+                       max(3, reps // 4), warmup=1)
+    # yardstick: one index_add_ into a zeroed [V, D], the slot rows and
+    # their bags' gradients gathered before the timing (not in the port)
+    lib_slots = valid.nonzero().squeeze(1)
+    lib_rows = flat[lib_slots].long()
+    lib_src = grad.reshape(N, D).index_select(0, lib_slots // L)
+    library_ms = cuda_ms(lambda: torch.zeros(
+        (V, D), device=ids.device).index_add_(0, lib_rows, lib_src), reps)
+    del lib_slots, lib_rows, lib_src
+    rec.update({"phase": "kernel", "name": "embedding_bag_bwd",
+                "input": label, "route": "cuda",
+                "shape": {"N": N, "L": L, "V": V, "D": D,
+                          "G": N // grad.shape[0],
+                          "row_stride": grad.stride(0)},
+                "valid_slots": slots, "distinct_rows": int(counts.numel()),
+                "hottest_row_slots": int(counts.max()),
+                "chunk": ops.BWD_CHUNK, "bit_equal_two_calls": True,
+                "bytes": nbytes, "kernel_ms": kernel_ms,
+                "kernel_ms_single": single_ms,
+                "split_ms": {"zero_fill": zero_ms, "sort": sort_ms,
+                             "kernels": kernels_ms},
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(bound_ms, bound_ops_ms),
+                "bound_by": ("bytes" if bound_ms >= bound_ops_ms
+                             else "operations"),
+                "pct_of_bound": 100 * max(bound_ms, bound_ops_ms)
+                / kernel_ms,
+                "kernel_over_library": kernel_ms / library_ms})
+    return rec
+
+
+def recsys_train_check() -> dict:
+    """Wide & Deep ``SMOKE`` in float32 (TF32 off), step 0 from the same
+    weights on cuda and cpu: the loss, the global gradient norm and the
+    table's gradient agree (``RECSYS_RTOL`` / ``RECSYS_ATOL``), with one K4
+    forward and one K4 backward launch on the card; then two AdamW steps
+    on those gradients on the card, in pieces of ``RECSYS_CHECK_PIECE``
+    elements and on whole tensors: the same bits."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import wide_deep as wd
+    from repro_torch.models import recsys
+    from repro_torch.train import optimizer as opt
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "recsys_train check: TF32 matmuls are on")
+    cfg, spec = wd.SMOKE, wd.SMOKE_SHAPES["train_batch"]
+    t0 = time.perf_counter()
+    on_card = recsys.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    on_host = recsys.WideDeep(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    got = {}
+    for dev, m in (("cuda", on_card), ("cpu", on_host)):
+        kernels.reset_launches()
+        params = [p.requires_grad_() for p in m.parameters()]
+        loss, _ = recsys.loss_fn(m, wd.make_batch(cfg, spec, SEED, dev), cfg)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params)]
+        got[dev] = (float(loss.detach()), float(opt.global_norm(grads)),
+                    grads, dict(kernels.LAUNCHES))
+        for p in params:
+            p.requires_grad_(False)
+    want = {"embedding_bag": 1, "embedding_bag.vec": 1,
+            "embedding_bag_bwd": 1}
+    require(got["cuda"][3] == want and got["cpu"][3] == {},
+            f"recsys_train check: launches {got['cuda'][3]} on cuda, "
+            f"{got['cpu'][3]} on cpu")
+    errs = {}
+    for i, what in enumerate(("loss", "grad_norm")):
+        a, b = got["cuda"][i], got["cpu"][i]
+        errs[what] = abs(a - b)
+        require(abs(a - b) <= RECSYS_ATOL + RECSYS_RTOL * abs(b),
+                f"recsys_train check: step 0 {what} {a} on cuda, {b} on cpu")
+    table_grad = got["cuda"][2][0].cpu()
+    errs["table_grad"] = float((table_grad - got["cpu"][2][0]).abs().max())
+    require(torch.allclose(table_grad, got["cpu"][2][0], rtol=RECSYS_RTOL,
+                           atol=RECSYS_ATOL),
+            f"recsys_train check: the table's gradient differs (max abs err "
+            f"{errs['table_grad']})")
+    # the bounded update against whole tensors, on the card
+    acfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = []
+    for piece in (RECSYS_CHECK_PIECE, None):
+        ps = [p.detach().clone() for p in on_card.parameters()]
+        st = opt.init(acfg, ps)
+        for _ in range(2):
+            opt.update(acfg, got["cuda"][2], st, ps, piece=piece)
+        runs.append(ps + st.mu + st.nu)
+    require(all(torch.equal(a, b) for a, b in zip(*runs)),
+            "recsys_train check: the update in pieces differs from the "
+            "update of whole tensors")
+    return {"phase": "check", "model": cfg.name, "what": "recsys_train",
+            "dtype": str(cfg.dtype), "loss_cuda": got["cuda"][0],
+            "loss_cpu": got["cpu"][0], "abs_err": errs,
+            "rtol": RECSYS_RTOL, "atol": RECSYS_ATOL,
+            "update_piece": RECSYS_CHECK_PIECE,
+            "bounded_update_bit_equal": True, "launches": got["cuda"][3],
             "seconds": time.perf_counter() - t0}
 
 
@@ -3245,11 +3637,13 @@ def run() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    require(len(built) == 5, f"expected 5 kernel sources, found "
+    require(len(built) == 6, f"expected 6 kernel sources, found "
                              f"{sorted(s.name for s in built)}")
-    # no ptxas spill in K1, K4 and K2's rows kernel (its instantiations
-    # picked out by name, so the tc kernel's report decides nothing)
+    # no ptxas spill in K1, K4 (forward and backward) and K2's rows kernel
+    # (its instantiations picked out by name, so the tc kernel's report
+    # decides nothing)
     for stem, name, want in (("embedding_bag", "", None),
+                             ("embedding_bag_bwd", "", None),
                              ("wcoj_intersect", "", None),
                              ("flash_attention", "attn_rows_kernel",
                               ROWS_INSTANTIATIONS)):
@@ -3361,6 +3755,19 @@ def run() -> int:
     torch.cuda.empty_cache()
     emit(recsys_check())
 
+    # Wide & Deep training at CONFIG: the serving model is gone (one
+    # CONFIG model and its optimizer state fill most of the card)
+    train_rec, bwd_call = recsys_train_path()
+    emit(train_rec)
+    full = bwd_call.pop("grad").cuda()
+    bag_bwd = bag_bwd_phase("embedding_bag_bwd_train_batch",
+                            bwd_call.pop("ids").cuda(),
+                            full[:, :bwd_call["cols"]], bwd_call["V"])
+    emit(bag_bwd)
+    del full, bwd_call
+    torch.cuda.empty_cache()
+    emit(recsys_train_check())
+
     emit(gnn_path())
 
     lm_recs, lm_calls = lm_train_path()
@@ -3439,7 +3846,15 @@ def run() -> int:
             "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
             "src/repro/kernels/embedding_bag/embedding_bag.py:50",
             bag_phases[1], bag_phases,
-            recsys_rec["launches"].get("embedding_bag", 0))]})
+            recsys_rec["launches"].get("embedding_bag", 0)
+            + train_rec["launches"].get("embedding_bag", 0)),
+        kernel_entry(
+            "embedding_bag_bwd",
+            "src/repro_torch/kernels/embedding_bag/csrc/"
+            "embedding_bag_bwd.cu",
+            "none (backward of K4; the reference differentiates its "
+            "jnp.take lookup)", bag_bwd, [bag_bwd],
+            train_rec["launches"].get("embedding_bag_bwd", 0))]})
     print(smi, flush=True)
     require(time.perf_counter() - t_start < 1200, "smoke run over 1200 s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

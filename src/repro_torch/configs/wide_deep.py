@@ -1,10 +1,10 @@
 """wide-deep [arXiv:1606.07792]: 40 sparse fields, embed_dim 32,
 MLP 1024-512-256, concat interaction.
 
-The serve and retrieval parts of the reference's ``RecsysBundle`` as plain
-functions: ``make_step`` (the step callable of a shape kind),
-``host_batch``/``make_batch`` (the batch half of ``make_concrete``) and
-``model_flops``.
+The reference's ``RecsysBundle`` as plain functions: ``make_step`` (the
+step callable of a shape kind: train, serve or retrieval), ``adam_cfg``,
+``host_batch``/``make_batch`` (the batch half of ``make_concrete``),
+``make_concrete`` and ``model_flops``.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import recsys
 from repro_torch.models.common import resolve_device
+from repro_torch.train import optimizer as opt
 
 SHAPES = {
     "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
@@ -37,16 +38,24 @@ SMOKE = recsys.WideDeepConfig(name="wide-deep-smoke",
                               mlp=(64, 32, 16))
 
 
+def adam_cfg() -> opt.AdamWConfig:
+    """The reference's optimizer for Wide & Deep: lr 1e-3, no weight
+    decay, 100,000 steps (warm-up 100, clipping at 1.0 by default)."""
+    return opt.AdamWConfig(lr=1e-3, total_steps=100000, weight_decay=0.0)
+
+
 def make_step(cfg: recsys.WideDeepConfig, kind: str):
-    """``step(model, batch)`` of a serve or retrieval shape; training is
-    not ported."""
+    """The step of a shape kind: ``train_step(model, opt_state, batch)``
+    (``recsys.make_train_step`` with ``adam_cfg()``), or ``step(model,
+    batch)`` of a serve or retrieval shape."""
+    if kind == "train":
+        return recsys.make_train_step(cfg, adam_cfg())
     if kind == "serve":
         return lambda model, batch: recsys.forward(model, batch, cfg)
     if kind == "retrieval":
         return lambda model, batch: recsys.retrieval_scores(model, batch,
                                                             cfg)
-    raise NotImplementedError(f"shape kind {kind!r}: only serve and "
-                              f"retrieval are ported")
+    raise ValueError(f"shape kind {kind!r}: not train, serve or retrieval")
 
 
 def host_batch(cfg: recsys.WideDeepConfig, shape: ShapeSpec,
@@ -71,6 +80,22 @@ def make_batch(cfg: recsys.WideDeepConfig, shape: ShapeSpec, seed: int = 0,
     dev = resolve_device(device)
     return {k: torch.as_tensor(v, device=dev)
             for k, v in host_batch(cfg, shape, seed).items()}
+
+
+def make_concrete(cfg: recsys.WideDeepConfig, shape: ShapeSpec,
+                  seed: int = 0, device=None) -> tuple:
+    """The reference's ``make_concrete`` on ``device`` (``None`` means
+    cuda): weights drawn from a ``torch.Generator`` seeded with ``seed``
+    (``recsys.init_params``), ``make_batch``'s batch, and for a train shape
+    the AdamW state of ``adam_cfg()`` between them: ``(model, opt_state,
+    batch)``, else ``(model, batch)``."""
+    dev = resolve_device(device)
+    model = recsys.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    batch = make_batch(cfg, shape, seed, dev)
+    if shape.kind == "train":
+        return model, opt.init(adam_cfg(), model.parameters()), batch
+    return model, batch
 
 
 def model_flops(cfg: recsys.WideDeepConfig, shape: ShapeSpec) -> float:

@@ -1,9 +1,11 @@
-"""Plain PyTorch version of the embedding-bag kernel: a masked
-``index_select`` and a sum over the bag's slots.
+"""Plain PyTorch versions of the embedding-bag kernels: the forward as a
+masked ``index_select`` and a sum over the bag's slots, the backward (the
+table's gradient) as one ``index_add_`` of every valid slot's bag
+gradient.
 
-The wrapper runs it for CPU tensors; on the card it is the oracle the CUDA
-kernels are held against.  It materialises every slot's row in fp32, so it
-is no yardstick of speed.
+The wrappers run them for CPU tensors; on the card they are the oracles
+the CUDA kernels are held against.  They materialise every slot's row in
+fp32, so they are no yardstick of speed.
 """
 from __future__ import annotations
 
@@ -53,3 +55,41 @@ def embedding_bag_ref(ids: torch.Tensor, table: torch.Tensor,
         return bags
     bags_per_row(N, D, out)
     return out.copy_(bags.reshape(out.shape))
+
+
+def bag_width(n_bags: int, grad: torch.Tensor) -> int:
+    """``D`` of a view holding the gradients of ``n_bags`` bags, ``G``
+    consecutive bags a row (``[n_bags / G, G * D]``, as ``bags_per_row``
+    checks, which raises on any other view)."""
+    if grad.dim() != 2:
+        raise ValueError(f"embedding_bag: the bag gradient must be 2-D, got "
+                         f"{tuple(grad.shape)}")
+    R, C = grad.shape
+    dim = C * R // n_bags if n_bags else C
+    bags_per_row(n_bags, dim, grad)
+    return dim
+
+
+def embedding_bag_backward_ref(ids: torch.Tensor, grad_bags: torch.Tensor,
+                               V: int) -> torch.Tensor:
+    """The table's gradient of ``embedding_bag_ref``: ids ``[N, L]``
+    (negative: padding), ``grad_bags`` the gradient of the ``N`` bags (a
+    view whose rows each hold ``G`` consecutive bags, as ``bag_width``
+    checks) -> dense ``[V, D]`` in fp32 (fp64 for an fp64 gradient).  Each
+    slot with ``0 <= id < V`` adds its bag's gradient to row ``id``;
+    padding and ids ``>= V`` add nothing, as they read nothing in the
+    forward.  One ``index_add_`` in slot order: on the CPU a sequential sum
+    in that order, on the card atomics in no fixed order.  A row's fp32 sum
+    over tens of thousands of slots strays from the exact sum by up to the
+    reference's tolerance where its terms cancel, so the card's checks hold
+    the kernel to this function on the fp64 gradient."""
+    N, L = ids.shape
+    D = bag_width(N, grad_bags)
+    dtype = torch.promote_types(grad_bags.dtype, torch.float32)
+    out = torch.zeros((V, D), dtype=dtype, device=grad_bags.device)
+    if N * L == 0 or V == 0:
+        return out
+    flat = ids.reshape(-1)
+    slots = ((flat >= 0) & (flat < V)).nonzero().squeeze(1)
+    rows = grad_bags.reshape(N, D).to(dtype).index_select(0, slots // L)
+    return out.index_add_(0, flat[slots].to(torch.int64), rows)

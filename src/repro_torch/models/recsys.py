@@ -1,19 +1,23 @@
 """Wide & Deep (Cheng et al., arXiv:1606.07792), the port of
 ``src/repro/models/recsys.py``: the serve (pointwise CTR logits) and
-retrieval (one query against many candidates) forward passes.
+retrieval (one query against many candidates) forward passes, and the
+training step (``loss_fn``, ``make_train_step``).
 
 The bag lookups of the deep tower go through the hand-written CUDA
 embedding-bag kernel (``kernels/embedding_bag``): one launch per forward
 for all ``B * n_sparse`` bags, writing the sums straight into the MLP's
-input buffer (no concat copy).  The MLP, the wide part and the retrieval
-scoring stay ``torch.matmul`` and plain gathers in fp32, as the reference
-left them to XLA outside any Pallas kernel (with TF32 off, the PyTorch
-default, so the card agrees with the CPU).
+input buffer (no concat copy); in training the table's gradient comes from
+the kernel's backward, one launch per step (``MLPInput``).  The MLP, the
+wide part and the retrieval scoring stay ``torch.matmul`` and plain
+gathers in fp32, as the reference left them to XLA outside any Pallas
+kernel (with TF32 off, the PyTorch default, so the card agrees with the
+CPU).
 
 Parameters live in an ``nn.Module`` under the reference's tree names
 (``params_from_reference`` copies a JAX tree over), in ``cfg.dtype``; the
 reference keeps fp32 masters and casts them to ``cfg.dtype`` at use, which
-is the same numbers.  They serve: they do not require gradients.
+is the same numbers.  They are made without ``requires_grad`` (serving
+builds no graph); the train step turns it on.
 """
 from __future__ import annotations
 
@@ -24,7 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.kernels.embedding_bag.ops import dense_rows
 from repro_torch.kernels.embedding_bag.ops import embedding_bag as bag_sum
+from repro_torch.kernels.embedding_bag.ops import \
+    embedding_bag_backward as bag_grad
 from repro_torch.models.common import dense_init, dense_init_, resolve_device
 
 
@@ -75,6 +82,8 @@ class WideDeepConfig:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    """Uninitialised, without ``requires_grad``: the train step
+    (``train/step.py``) turns it on for the parameters it differentiates."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -168,19 +177,26 @@ def params_from_reference(cfg: WideDeepConfig, arrays: dict,
     return model
 
 
-def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
-                  offsets: torch.Tensor,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """ids ``[B, F, bag]`` (-1 pad, per-field local ids) -> ``[B, F*dim]``:
-    the field offsets are added where ``ids >= 0`` (the sums stay within
-    int32: the largest row is ``total_rows - 1``), and all ``B * F`` bags
-    go through one embedding-bag kernel call.  ``out``: a ``[B, F*dim]``
-    view (last stride 1, any row stride) the bags are written into and
-    which is returned."""
+def table_ids(ids: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """ids ``[B, F, bag]`` (-1 pad, per-field local ids) -> the ``B * F``
+    bags' table rows, int32 ``[B * F, bag]``: the field offsets added where
+    ``ids >= 0`` (the sums stay within int32: the largest row is
+    ``total_rows - 1``)."""
     B, F_, L = ids.shape
     gidx = torch.where(ids >= 0, ids + offsets[None, :, None].to(ids.dtype),
                        -1).to(torch.int32)
-    bags = bag_sum(gidx.reshape(B * F_, L).contiguous(), table, out=out)
+    return gidx.reshape(B * F_, L).contiguous()
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  offsets: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """ids ``[B, F, bag]`` -> ``[B, F*dim]``: all ``B * F`` bags of
+    ``table_ids`` go through one embedding-bag kernel call.  ``out``: a
+    ``[B, F*dim]`` view (last stride 1, any row stride) the bags are
+    written into and which is returned."""
+    B, F_, _ = ids.shape
+    bags = bag_sum(table_ids(ids, offsets), table, out=out)
     return bags.reshape(B, F_ * table.shape[1])
 
 
@@ -194,23 +210,44 @@ def mlp_input_width(cfg: WideDeepConfig) -> int:
     return -(-n_in // per_piece) * per_piece
 
 
+class MLPInput(torch.autograd.Function):
+    """The deep tower's input, the reference's concat ``[bags, dense]``,
+    built in place: ``apply(table, gidx, dense, width)`` (``gidx`` from
+    ``table_ids``) has K4 write the ``B * F`` bag sums straight into
+    columns ``[0, F*dim)`` of one ``[B, width]`` buffer, copies ``dense``
+    beside them and returns the ``[B, F*dim + n_dense]`` view (the padding
+    columns are never read).  Backward: the table's gradient from the first
+    ``F*dim`` columns of the incoming gradient, through K4's backward
+    (``dense`` and the ids take none)."""
+
+    @staticmethod
+    def forward(ctx, table, gidx, dense, width):
+        B = dense.shape[0]
+        n_bags = gidx.shape[0] // max(B, 1) * table.shape[1]
+        n_in = n_bags + dense.shape[1]
+        buf = torch.empty((B, width), dtype=table.dtype, device=table.device)
+        bag_sum(gidx, table, out=buf[:, :n_bags])
+        buf[:, n_bags:n_in] = dense
+        ctx.save_for_backward(gidx)
+        ctx.rows, ctx.n_bags, ctx.dtype = table.shape[0], n_bags, table.dtype
+        return buf[:, :n_in]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (gidx,) = ctx.saved_tensors
+        g = bag_grad(gidx, dense_rows(grad[:, :ctx.n_bags].float()),
+                     ctx.rows)
+        return g.to(ctx.dtype), None, None, None
+
+
 def deep_tower(model: WideDeep, batch: dict,
                cfg: WideDeepConfig) -> torch.Tensor:
-    """The reference's concat ``[bags, dense]`` and MLP, with the concat
-    built in place: K4 writes the bag sums straight into columns ``[0,
-    F*dim)`` of one ``[B, mlp_input_width]`` buffer, ``dense`` is copied
-    beside them, and the first layer multiplies the ``[B, F*dim +
-    n_dense]`` view (its row stride is cuBLAS's leading dimension; the
-    padding columns are never read)."""
-    ids = batch["sparse_ids"]
-    B = ids.shape[0]
-    n_bags = cfg.n_sparse * cfg.embed_dim
-    n_in = n_bags + cfg.n_dense
-    buf = torch.empty((B, mlp_input_width(cfg)), dtype=cfg.dtype,
-                      device=model.table.device)
-    embedding_bag(model.table, ids, model.offsets, out=buf[:, :n_bags])
-    buf[:, n_bags:n_in] = batch["dense"].to(cfg.dtype)
-    x = buf[:, :n_in]
+    """The reference's concat ``[bags, dense]`` (``MLPInput``: no concat
+    copy) and MLP; the first layer multiplies the buffer's ``[B, F*dim +
+    n_dense]`` view, whose row stride is cuBLAS's leading dimension."""
+    x = MLPInput.apply(model.table,
+                       table_ids(batch["sparse_ids"], model.offsets),
+                       batch["dense"].to(cfg.dtype), mlp_input_width(cfg))
     for layer in model.mlp:
         x = torch.relu(x @ layer.w + layer.b)
     return x                                            # [B, mlp[-1]]
@@ -232,6 +269,31 @@ def retrieval_scores(model: WideDeep, batch: dict,
     cand = model.items.index_select(
         0, batch["candidate_ids"].to(torch.int64))      # [n_cand, item_dim]
     return cand @ user[0]
+
+
+def loss_fn(model: WideDeep, batch: dict, cfg: WideDeepConfig):
+    """The reference's binary cross-entropy with logits, in its stable form
+    ``max(z, 0) - z y + log1p(exp(-|z|))``, averaged over the batch; returns
+    (loss, {"acc"}), ``acc`` the share of logits on the label's side of 0."""
+    logits = forward(model, batch, cfg).to(torch.float32)
+    y = batch["labels"].to(torch.float32)
+    loss = torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    acc = torch.mean(((logits > 0) == (y > 0.5)).to(torch.float32))
+    return loss, {"acc": acc}
+
+
+def make_train_step(cfg: WideDeepConfig, adam_cfg):
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``: ``repro_torch.train.step``'s step over ``loss_fn`` (the
+    bounded AdamW update, so the full table's gradient and moments fit
+    beside it).  Float32 configs only."""
+    from repro_torch.train.step import make_train_step as train_step
+    if cfg.dtype != torch.float32:
+        raise ValueError(f"make_train_step: {cfg.name} computes in "
+                         f"{cfg.dtype}; the port trains float32 configs "
+                         f"only")
+    return train_step(loss_fn, cfg, adam_cfg)
 
 
 def synthetic_batch(cfg: WideDeepConfig, batch_size: int, seed: int = 0,

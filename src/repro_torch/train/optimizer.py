@@ -121,17 +121,77 @@ def stacked_leaves(model, name: str = "layers") -> list:
     return list(groups.values())
 
 
+# elements in one piece of the update (256 MB in fp32): its temporaries
+# are a few pieces, however large the parameters
+PIECE = 1 << 26
+
+
+def _batches(sizes: list, piece: int | None) -> list:
+    """The update's pieces, as lists of ``(tensor index, start, stop)``
+    slices of the flattened tensors in parameter order: each list covers
+    ``piece`` elements (the last fewer), cutting a tensor where a piece
+    ends; ``piece=None`` gives one list of every tensor whole."""
+    if piece is None:
+        return [[(i, 0, n) for i, n in enumerate(sizes)]]
+    batches, batch, room = [], [], piece
+    for i, n in enumerate(sizes):
+        start = 0
+        while start < n:
+            take = min(n - start, room)
+            batch.append((i, start, start + take))
+            start, room = start + take, room - take
+            if room == 0:
+                batches.append(batch)
+                batch, room = [], piece
+    if batch:
+        batches.append(batch)
+    return batches
+
+
+def _adamw(cfg: AdamWConfig, grads, mu, nu, params, scale, lr, b1c, b2c):
+    """The reference's per-leaf update on lists of equal-shaped tensors
+    (the gradients unscaled): ``mu``, ``nu`` and ``params`` written in
+    place.  Each line is one multi-tensor (``torch._foreach_*``) launch,
+    with the reference's operations in its order."""
+    grads = torch._foreach_mul(grads, scale)
+    torch._foreach_mul_(mu, cfg.b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - cfg.b1))
+    torch._foreach_mul_(nu, cfg.b2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - cfg.b2))
+    del grads
+    mhat = torch._foreach_div(mu, b1c)
+    vhat = torch._foreach_div(nu, b2c)
+    delta = torch._foreach_div(
+        mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
+    del mhat, vhat
+    torch._foreach_add_(delta, torch._foreach_mul(
+        [p.to(torch.float32) for p in params], cfg.weight_decay))
+    torch._foreach_sub_(params, torch._foreach_mul(
+        [d.to(p.dtype) for d, p in zip(delta, params)], lr))
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: AdamState, params,
-           groups: list | None = None):
-    """One step over ``params`` (a list of tensors, written in place) and
-    ``grads`` (the same order).  Returns (params, new_state, metrics).
-    Each line is one multi-tensor (``torch._foreach_*``) launch over all
-    the tensors, with the reference's operations in its order.
-    ``groups`` (lists of indices into ``params``, each tensor in one)
-    names the tensors that are one leaf of the reference's tree, so that
-    compression quantizes each leaf with one scale as the reference does;
-    by default each tensor is its own leaf."""
+           groups: list | None = None, piece: int | None = PIECE):
+    """One step over ``params`` (a list of contiguous tensors, written in
+    place) and ``grads`` (the same order).  Returns (params, new_state,
+    metrics).  ``groups`` (lists of indices into ``params``, each tensor in
+    one) names the tensors that are one leaf of the reference's tree, so
+    that compression quantizes each leaf with one scale as the reference
+    does; by default each tensor is its own leaf.
+
+    The global norm and the clipping scale are taken over the whole list;
+    then the moments and parameters are updated ``piece`` elements at a
+    time (``_batches``: flat slices of the tensors, a large one cut into
+    many), so the temporaries never hold more than four pieces in fp32
+    (1 GiB at ``PIECE``; five for non-fp32 parameters) whatever the
+    parameters' size: Wide & Deep's 14.78 GB of weights update beside
+    their gradients and moments on an 80 GB card.  Every operation is
+    elementwise, so the result is bit-equal to the update of whole tensors
+    (``piece=None``).  The int8 compression (off in every Wide & Deep
+    configuration) still takes each leaf whole: its scale is the leaf's
+    largest magnitude, and its residual is a tensor of the leaf's size."""
     params = list(params)
     grads = [g.to(torch.float32) for g in grads]
     if cfg.compress_grads:
@@ -146,25 +206,20 @@ def update(cfg: AdamWConfig, grads, state: AdamState, params,
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
-    grads = torch._foreach_mul(grads, scale)
 
     step = state.step + 1
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
     mu, nu = state.mu, state.nu
-    torch._foreach_mul_(mu, cfg.b1)
-    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - cfg.b1))
-    torch._foreach_mul_(nu, cfg.b2)
-    torch._foreach_add_(nu, torch._foreach_mul(
-        torch._foreach_mul(grads, grads), 1 - cfg.b2))
-    mhat = torch._foreach_div(mu, b1c)
-    vhat = torch._foreach_div(nu, b2c)
-    delta = torch._foreach_div(
-        mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
-    torch._foreach_add_(delta, torch._foreach_mul(
-        [p.to(torch.float32) for p in params], cfg.weight_decay))
-    torch._foreach_sub_(params, torch._foreach_mul(
-        [d.to(p.dtype) for d, p in zip(delta, params)], lr))
+    # flat views: params and moments must be views (written in place), a
+    # gradient may be copied to flatten it
+    flat = {"g": [g.reshape(-1) for g in grads],
+            "m": [m.view(-1) for m in mu], "v": [v.view(-1) for v in nu],
+            "p": [p.view(-1) for p in params]}
+    for batch in _batches([p.numel() for p in params], piece):
+        g, m, v, p = ([ts[i][a:b] for i, a, b in batch]
+                      for ts in flat.values())
+        _adamw(cfg, g, m, v, p, scale, lr, b1c, b2c)
     return params, AdamState(step, mu, nu, new_err), {
         "grad_norm": gnorm, "lr": lr}

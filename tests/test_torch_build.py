@@ -56,8 +56,9 @@ def test_system_includes_and_missing_files_are_left_to_the_compiler(
 def test_both_tensor_core_kernels_include_the_shared_header():
     header = (_build.KERNELS_DIR / "_hopper" / "hopper.cuh").resolve()
     sources = {s.stem: s for s in _build.KERNELS_DIR.glob("*/csrc/*.cu")}
-    # the header is not a kernel source; K2's backward is a source of its own
-    assert len(sources) == 5
+    # the header is not a kernel source; K2's and K4's backward are
+    # sources of their own
+    assert len(sources) == 6
     for name in ("flash_attention", "grouped_matmul"):
         assert header in _build.local_headers(sources[name])
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version (K1's
 two routes on CSRs where its walk is likely to go wrong); the LM, Wide
-& Deep and the GNN smoke bundles on cuda against the CPU; fused graph
-chains (K1 probes inside) on cuda against the CPU.  Every test here is
+& Deep and the GNN smoke bundles on cuda against the CPU (Wide & Deep's
+train step too, with K4's backward); fused graph chains (K1 probes
+inside) on cuda against the CPU.  Every test here is
 marked ``gpu``
 and skips itself without a card.  The file imports neither jax nor the
 reference package, so it runs on a machine that has only PyTorch:
@@ -1397,3 +1398,159 @@ def test_grouped_matmul_raises_when_the_launch_fails(card, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         gmm_ops.grouped_matmul(x, w)
     assert kernels.LAUNCHES == before
+
+
+# ------------------------------ K4's backward and Wide & Deep training
+
+def _bag_bwd_case(card, N, L, V, D, seed, G=1, stride=None, hot=0):
+    """Ids of every kind (padding, below -1, valid, >= V), ``hot`` slots
+    on row 0, and a bag gradient at unit RMS as ``[N / G, G * D]`` rows
+    of row stride ``stride`` (a view of a wider buffer)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    ids = torch.randint(-3, V + 5, (N, L), generator=g, device=card,
+                        dtype=torch.int32)
+    if hot:
+        flat = ids.view(-1)
+        where = torch.randperm(N * L, generator=g, device=card)[:hot]
+        flat[where] = 0
+    cols = G * D
+    buf = torch.randn(N // G, stride or cols, generator=g, device=card)
+    return ids, buf[:, :cols]
+
+
+def _check_bag_bwd(ids, grad, V):
+    """One ``embedding_bag_bwd`` launch a call, the same bits over two
+    calls, within 1e-4 of the plain version run on the fp64 gradient (in
+    fp32 its atomics add up to the tolerance's size of error of their own
+    on a row of tens of thousands of slots whose terms cancel)."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_backward
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    before = kernels.LAUNCHES.get("embedding_bag_bwd", 0)
+    got = embedding_bag_backward(ids, grad, V)
+    again = embedding_bag_backward(ids, grad, V)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag_bwd"] == before + 2
+    assert got.shape == (V, grad.shape[1] * grad.shape[0] // ids.shape[0])
+    assert torch.equal(got, again)
+    want = embedding_bag_backward_ref(ids, grad.double(), V)
+    assert want.dtype == torch.float64
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,L,V,D", [(1000, 8, 5000, 32), (37, 3, 50, 8),
+                                     (300, 13, 2000, 80), (1, 1, 1, 32)])
+def test_embedding_bag_backward_matches_plain_version(card, N, L, V, D):
+    ids, grad = _bag_bwd_case(card, N, L, V, D, seed=N + D)
+    _check_bag_bwd(ids, grad, V)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_backward_hot_row_and_deep_tower_geometry(card):
+    """The shape of Wide & Deep's training at a small batch: 40 bags a
+    gradient row of row stride 1,293 floats (5,172 bytes, not 16-byte
+    aligned), and one row taking 60,000 slots (~235 chunks, summed as
+    partials in chunk order), with padding and ids past the table."""
+    B, F, L, V, D = 2048, 40, 8, 100_000, 32
+    ids, grad = _bag_bwd_case(card, B * F, L, V, D, seed=1, G=F,
+                              stride=1293, hot=60_000)
+    assert grad.stride(0) == 1293 and (grad.stride(0) * 4) % 16
+    assert int((ids == 0).sum()) >= 60_000
+    got, want = _check_bag_bwd(ids, grad, V)
+    assert float(want[0].abs().max()) > 10      # the hot row's sum
+    untouched = torch.ones(V, dtype=torch.bool, device=card)
+    untouched[ids[(ids >= 0) & (ids < V)].long()] = False
+    assert bool(untouched.any()) and not bool(got[untouched].any())
+
+
+@pytest.mark.gpu
+def test_embedding_bag_backward_never_runs_the_plain_version(card,
+                                                             monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with the plain version
+    made to raise, the kernel still runs; wrong inputs on the card
+    raise."""
+    from repro_torch.kernels.embedding_bag import ops
+    ids, grad = _bag_bwd_case(card, 64, 4, 100, 32, seed=3)
+    want = ops.embedding_bag_backward_ref(ids, grad, 100)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ops, "embedding_bag_backward_ref", refuse)
+    got = ops.embedding_bag_backward(ids, grad, 100)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError, match="float32"):
+        ops.embedding_bag_backward(ids, grad.half(), 100)
+    with pytest.raises(ValueError, match="ids are on"):
+        ops.embedding_bag_backward(ids.cpu(), grad, 100)
+    with pytest.raises(ValueError, match="dense and apart"):
+        ops.embedding_bag_backward(ids, grad.t().contiguous().t(), 100)
+    monkeypatch.setattr(ops, "_bwd_fn", lambda: (lambda *args: 1))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.embedding_bag_backward(ids, grad, 100)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_wide_deep_train_step_on_the_card_matches_the_cpu(card):
+    """One float32 train step of Wide & Deep SMOKE (TF32 off) on the
+    card and on the CPU from the same weights: loss, gradient norm and
+    every updated weight within rtol 1e-4 / atol 1e-5, one K4 forward (on
+    ``vec``) and one K4 backward launch on the card, none on the CPU."""
+    from repro_torch.configs import wide_deep as wd
+    from repro_torch.models import recsys
+    from repro_torch.train import optimizer as opt
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = wd.SMOKE
+    spec = wd.SMOKE_SHAPES["train_batch"]
+    on_card = recsys.init_params(cfg, torch.Generator(card).manual_seed(0),
+                                 device=card)
+    on_host = recsys.WideDeep(cfg, "cpu")
+    on_host.load_state_dict(on_card.state_dict())
+    acfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                           weight_decay=0.0)
+    step = recsys.make_train_step(cfg, acfg)
+    out = {}
+    for dev, model in ((card, on_card), (torch.device("cpu"), on_host)):
+        kernels.reset_launches()
+        ost = opt.init(acfg, model.parameters())
+        model, ost, m = step(model, ost, wd.make_batch(cfg, spec, seed=2,
+                                                       device=dev))
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         [p.detach().cpu() for p in model.parameters()],
+                         dict(kernels.LAUNCHES))
+    assert out["cuda"][3] == {"embedding_bag": 1, "embedding_bag.vec": 1,
+                              "embedding_bag_bwd": 1}
+    assert out["cpu"][3] == {}
+    for i in (0, 1):
+        np.testing.assert_allclose(out["cuda"][i], out["cpu"][i], rtol=1e-4,
+                                   atol=1e-5)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bounded_update_on_the_card_is_bit_equal_to_whole_tensors(card):
+    """The AdamW update in pieces of 1,000 elements and of whole tensors,
+    three steps on the card: the same bits (parameters and moments)."""
+    from repro_torch.train import optimizer as opt
+    cfg = opt.AdamWConfig(lr=1e-2, weight_decay=0.1, warmup_steps=2,
+                          total_steps=10)
+    g = torch.Generator(device=card).manual_seed(5)
+    shapes = [(), (7,), (300, 33), (5000,), (64, 64)]
+    params = [torch.randn(s, generator=g, device=card) for s in shapes]
+    runs = []
+    for piece in (1000, None):
+        ps = [p.clone() for p in params]
+        st = opt.init(cfg, ps)
+        for i in range(3):
+            gg = torch.Generator(device=card).manual_seed(10 + i)
+            grads = [3 * torch.randn(s, generator=gg, device=card)
+                     for s in shapes]
+            _, st, _ = opt.update(cfg, grads, st, ps, piece=piece)
+        runs.append(ps + st.mu + st.nu)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

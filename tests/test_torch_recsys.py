@@ -176,9 +176,19 @@ def test_make_batch_and_step_match_reference(shape):
                                atol=ATOL)
 
 
-def test_training_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        pwd.make_step(pwd.SMOKE, "train")
+def test_training_is_the_ported_step():
+    """``make_step(cfg, "train")`` is ``train/step.py``'s step over the
+    port's ``loss_fn``, with the reference's AdamW configuration field for
+    field (lr 1e-3, no weight decay, 100,000 steps)."""
+    step = pwd.make_step(pwd.SMOKE, "train")
+    assert step.__module__ == "repro_torch.train.step"
+    assert step.__qualname__ == "make_train_step.<locals>.train_step"
+    assert dataclasses.asdict(pwd.adam_cfg()) == \
+        dataclasses.asdict(jwd.bundle(smoke=True).adam_cfg())
+    with pytest.raises(ValueError, match="float32"):
+        pr.make_train_step(dataclasses.replace(pwd.SMOKE,
+                                               dtype=torch.bfloat16),
+                           pwd.adam_cfg())
 
 
 def test_one_kernel_call_per_forward_and_no_launch_on_the_cpu(pair):
