@@ -115,7 +115,44 @@ Phases, each printing one JSON line:
 16. check  — OLMoE at full width but 2 layers, in float32 with TF32 off:
              a 256-token prefill and 4 teacher-forced decode steps give the
              same logits on ``device="cuda"`` and ``device="cpu"``;
-17. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
+17. archs  — the ten architectures through ``get_bundle(arch,
+             smoke=True)`` on cuda, every shape that runs:
+             ``make_concrete(device="cuda")`` then ``make_step``; every
+             floating output finite; K2 launched on every LM shape, K3 on
+             the MoE ones, K4 on Wide & Deep's (counted per shape); the
+             same step on a CPU copy of the inputs held to the card's at
+             the model tolerances (each LM bundle again in float32, where
+             its ``train_4k`` runs: in bf16 a router near-tie may send a
+             token to another expert on either device);
+18. long_context — OLMoE-1B-7B at ``CONFIG`` (random bf16 weights from a
+             seeded generator) through ``get_bundle`` and ``make_step``:
+             ``prefill_32k`` at batch 1 (cut from 32) and 32,768 prompt
+             tokens, one warm-up and 2 timed prefills, then
+             ``prefill(32,767)`` and one tick with token 32,767 against
+             ``prefill(32,768)`` (the same argmax up to a tie at the
+             logits' bf16 step, the max abs difference at most
+             ``LONG_TICK_BOUND``, which the CPU twin measured), then
+             ``decode_32k`` at batch 8 (cut from 128) over seeded random
+             caches of 32,768 positions at t = 32,767, one warm-up and 5
+             timed ticks; exactly 16 K2 (``tc`` in a prefill, ``split``
+             in a tick) and 48 K3 (``tc``) launches a step, finite logits,
+             peak memory at most 60e9 bytes;
+19. kernel — K2 on layer 0's call captured in the warm-up prefill (``tc``,
+             32,768 queries and keys: the last 1,024 query rows held to
+             the plain version over every key at 2e-2, one call timed
+             beside SDPA ``is_causal`` and the operations bound) and in
+             the warm-up tick (``split``, 8 slots over 32,768 keys, as
+             phase 15);
+20. dryrun — ``launch/dryrun.py``'s ``run_cell`` for every architecture x
+             shape x the 16x16 and 2x16x16 meshes: every cell OK or
+             SKIPPED, the skipped ones exactly the reference's four
+             ``long_500k`` and the five bf16 ``train_4k``; then the two
+             long-context cells at their cut batch on a (1, 1) mesh: the
+             predicted argument bytes equal to the bytes of the tensors
+             phase 18 passed, the predicted temporaries beside the step's
+             measured peak less what was allocated before it, the
+             measured ms beside max(t_compute, t_memory);
+21. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
              13.7 GB embedding table; random fp32 weights from a seeded
              generator on the card) serving the reference's three shapes:
              ``serve_p99`` (batch 512) 50 times, ``serve_bulk`` (batch
@@ -127,7 +164,7 @@ Phases, each printing one JSON line:
              on the host and copied to the card outside the timed window
              (``recsys_copy``); then one more forward of each shape under
              ``torch.profiler`` (no ``torch.cat`` kernel may appear);
-18. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
+22. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
              ``serve_bulk`` lookups, and on ``serve_bulk`` written through
              ``out`` into a buffer of the deep tower's padded shape (the
              padding columns untouched), against its plain version (1e-4,
@@ -136,9 +173,9 @@ Phases, each printing one JSON line:
              call, with one ``torch.nn.functional.embedding_bag`` call as
              the yardstick; then ``serve_p99`` on the ``warp`` route,
              through a view of the same table one element past its base;
-19. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
+23. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``;
-20. recsys_train — Wide & Deep at its full ``CONFIG`` trained on the card
+24. recsys_train — Wide & Deep at its full ``CONFIG`` trained on the card
              (the serving model freed first; random fp32 weights from a
              seeded generator, the reference's ``adam_cfg()``) at
              ``train_batch`` (65,536 examples from two seeded host
@@ -152,17 +189,17 @@ Phases, each printing one JSON line:
              layer and every table row the batches name move; ``items``,
              ``user_proj`` and the table rows no batch names keep their
              bits (digests);
-21. kernel — K4's backward on the call captured in the warm-up step (the
+25. kernel — K4's backward on the call captured in the warm-up step (the
              deep tower's input gradient, 40 bags a row of row stride
              1,293, scaled to unit RMS) against its plain version (1e-4),
              bit-equal over two calls, timed beside one ``index_add_``
              into a zeroed table gradient and its bytes bound, with the
              split into the zero fill, the sort and the two kernels;
-22. check  — Wide & Deep ``SMOKE`` training step 0 on cuda and on cpu from
+26. check  — Wide & Deep ``SMOKE`` training step 0 on cuda and on cpu from
              the same weights: loss, gradient norm and the table's
              gradient at the recsys tolerance; the AdamW update in pieces
              and of whole tensors on the card, bit-equal;
-23. gnn    — the GNN family training on the card in float32 with TF32
+27. gnn    — the GNN family training on the card in float32 with TF32
              off, each architecture through its full-size bundle (the
              published widths; random weights from a seeded generator on
              the card) and the reference's AdamW: GAT, SchNet, NequIP and
@@ -176,13 +213,16 @@ Phases, each printing one JSON line:
              moving the weights, the molecule losses equal to the port's
              on the CPU, one profiled molecule step each; then a summary
              with the runs the card does not take (``reduced``);
-24. lm_train — LM training through ``repro_torch.launch.train.train`` in
+28. lm_train — LM training through ``repro_torch.launch.train.train`` in
              float32 with TF32 off, into a temporary checkpoint directory:
              ``lm100m`` (12 layers, d_model 768, vocab 32,768) at batch 8 x
              seq 1,024 for 20 steps (checkpoints at 10 and 20), then
              ``train(steps=30)`` on the same directory, which must resume
              at step 20 with a first loss equal to the card's loss of step
-             20's batch on the restored weights, then a run with
+             20's batch on the weights restored (since PR 25) through
+             ``train/elastic.py::elastic_restart`` onto
+             ``make_host_mesh()``, a (1, 1) mesh over a one-rank NCCL
+             group (the state kept in place), then a run with
              ``should_preempt`` set; ``lm-moe`` at batch 16 x seq 1,024 for
              10 steps.  Gates: every loss and gradient norm finite, the
              mean of the last 5 losses below that of the first 5, no
@@ -197,7 +237,7 @@ Phases, each printing one JSON line:
              all on ``simt``.  Then 5 steps timed with CUDA events, peak
              memory, TFLOP/s of ``train_flops``, one profiled step, and the
              checkpoint's save and restore seconds;
-25. kernel — K2's forward on its ``rows`` route at the training shape
+29. kernel — K2's forward on its ``rows`` route at the training shape
              (``lm100m`` layer 0, fp32), beside SDPA with an explicit mask
              and with ``is_causal``, at most 0.55 ms (every ``rows``
              phase also holds its log-sum-exp to the plain version's at
@@ -216,7 +256,7 @@ Phases, each printing one JSON line:
              operands cast to bf16 (the forward on ``tc``, the backward
              recomputing), held at 2e-2; then K2's ``rows`` forward at
              ``lm-moe``'s layer 0 (head_dim 32);
-26. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
+30. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
              w2 products captured the same way (``dy`` at unit RMS): both
              gradients against autograd through the plain version (1e-4),
              dw bit-equal over two calls, and the three products as the
@@ -333,6 +373,29 @@ LM_TIMED_STEPS = 5
 # simt products of lm-moe's layer 0 (forward, dx, dw of w1 and w2)
 ATTN_BWD_LIMIT_MS = 1.6
 GMM_SIMT_LIMIT_MS = 0.33
+# long context: OLMoE at CONFIG through get_bundle, the reference's
+# prefill_32k and decode_32k cut in batch (32 -> 1, 128 -> 8); prefills
+# and ticks timed after one warm-up; the query rows of the captured 32k
+# prefill held to the plain version (over all keys); the bound on the max
+# abs difference between prefill(S) and prefill(S - 1) + one tick, which
+# the CPU twin measured (tests/test_torch_registry.py, OLMoE SMOKE in bf16:
+# capacity drops of the last token move logits by up to ~1)
+LONG_SEQ = 32_768
+LONG_BATCH = {"prefill_32k": 1, "decode_32k": 8}
+LONG_PREFILLS, LONG_TICKS = 2, 5
+LONG_CHECK_ROWS = 1_024
+LONG_TICK_BOUND = 2.0
+LONG_PEAK_BYTES = 60e9
+# every dry-run cell OK or SKIPPED, these skipped and no other: the
+# reference's four long_500k and the five bf16 train_4k
+DRYRUN_SKIPS = {("olmoe-1b-7b", "long_500k"),
+                ("moonshot-v1-16b-a3b", "long_500k"),
+                ("qwen2.5-32b", "long_500k"),
+                ("phi3-medium-14b", "long_500k"),
+                ("olmoe-1b-7b", "train_4k"),
+                ("moonshot-v1-16b-a3b", "train_4k"),
+                ("qwen2.5-32b", "train_4k"), ("phi3-medium-14b", "train_4k"),
+                ("gemma2-27b", "train_4k")}
 # the update stream at sf=100: a round's writes (edge inserts, deletes of
 # base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
 # only), its reads, the chunks they interleave in, the reads a round held
@@ -2304,6 +2367,485 @@ def model_check() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ------------------------------------------------------------- registry
+
+def _to_cpu(obj):
+    """A copy of a step argument on the CPU: a model, an optimizer state,
+    dicts, tuples and tensors (ints pass)."""
+    import copy
+    import torch
+    from repro_torch.train.optimizer import AdamState
+    if isinstance(obj, torch.nn.Module):
+        return copy.deepcopy(obj).to("cpu")
+    if isinstance(obj, AdamState):
+        return AdamState(*(_to_cpu(f) for f in obj))
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    return obj
+
+
+def _float_tensors(obj) -> list:
+    """Every floating tensor of a step's output (a model's parameters
+    too)."""
+    import torch
+    if isinstance(obj, torch.nn.Module):
+        return [p for p in obj.parameters() if p.is_floating_point()]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _float_tensors(v)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _float_tensors(v)]
+    if isinstance(obj, torch.Tensor) and obj.is_floating_point():
+        return [obj]
+    return []
+
+
+def _compared(out, kind: str) -> dict:
+    """The outputs a step is held to the CPU by: a train step's loss and
+    gradient norm, else its first output (logits or scores)."""
+    if kind == "train":
+        return {k: out[2][k].detach().float().cpu()
+                for k in ("loss", "grad_norm")}
+    first = out[0] if isinstance(out, tuple) else out
+    return {"out": first.detach().float().cpu()}
+
+
+def archs_path() -> dict:
+    """The ten architectures through ``get_bundle(arch, smoke=True)`` on
+    cuda: every shape that runs, from ``make_concrete(device="cuda")``
+    through ``make_step``; every floating output finite; K2 launched on
+    every LM shape, K3 on the MoE ones, K4 on Wide & Deep's.  The same
+    step on a CPU copy of the same inputs is held to the card's at the
+    model tolerances (LM rtol 2e-3 / atol 2e-4 in float32, GNN 1e-3 /
+    1e-4, Wide & Deep 1e-4 / 1e-5).  An LM smoke config computes in bf16,
+    where a near-tie in the router may send a token to another expert on
+    either device (a jump no tolerance bounds): it runs as it is for the
+    gates, and again in float32 (its ``train_4k`` then runs too) for the
+    cuda-vs-cpu check."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_bundle, list_archs
+    from repro_torch.configs.lm_common import LMBundle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tols = {"lm": (CHECK_RTOL, CHECK_ATOL), "gnn": (GNN_RTOL, GNN_ATOL),
+            "recsys": (RECSYS_RTOL, RECSYS_ATOL)}
+    t0 = time.perf_counter()
+    runs, launches = [], {}
+    for arch in list_archs():
+        bundle = get_bundle(arch, smoke=True)
+        variants = [(bundle, bundle.family != "lm")]
+        if bundle.family == "lm":
+            variants.append((LMBundle(dataclasses.replace(
+                bundle.cfg, dtype=torch.float32), smoke=True), True))
+        for b, check in variants:
+            for shape in b.shape_names():
+                spec = b.shapes[shape]
+                if spec.skip:
+                    continue
+                args = b.make_concrete(shape, seed=SEED, device="cuda")
+                host = _to_cpu(args) if check else None
+                step = b.make_step(shape)
+                kernels.reset_launches()
+                out = step(*args)
+                torch.cuda.synchronize()
+                n = dict(kernels.LAUNCHES)
+                label = f"archs {arch} {shape}"
+                dtype = str(getattr(getattr(b, "cfg", None), "dtype",
+                                    torch.float32))
+                require(all(bool(torch.isfinite(t).all())
+                            for t in _float_tensors(out)),
+                        f"{label} ({dtype}): a non-finite output")
+                if b.family == "lm":
+                    require(n.get("flash_attention", 0) >= 1,
+                            f"{label}: no flash_attention launch")
+                    if b.cfg.moe:
+                        require(n.get("grouped_matmul", 0) >= 1,
+                                f"{label}: no grouped_matmul launch")
+                if b.family == "recsys":
+                    require(n.get("embedding_bag", 0) >= 1,
+                            f"{label}: no embedding_bag launch")
+                for k, v in n.items():
+                    launches[k] = launches.get(k, 0) + v
+                run = {"arch": arch, "shape": shape, "kind": spec.kind,
+                       "dtype": dtype, "launches": n}
+                if check:
+                    got = _compared(out, spec.kind)
+                    del out, args
+                    want = _compared(step(*host), spec.kind)
+                    rtol, atol = tols[b.family]
+                    err = max(float((got[k] - want[k]).abs().max())
+                              for k in got)
+                    require(all(torch.allclose(got[k], want[k], rtol=rtol,
+                                               atol=atol) for k in got),
+                            f"{label} ({dtype}): cuda and cpu differ (max "
+                            f"abs err {err})")
+                    run.update(cpu_max_abs_err=err, rtol=rtol, atol=atol)
+                runs.append(run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "archs", "runs": runs, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _long_bundle():
+    """OLMoE's full bundle with ``prefill_32k`` and ``decode_32k`` cut in
+    batch (``LONG_BATCH``)."""
+    import dataclasses
+    from repro_torch.configs import get_bundle
+    bundle = get_bundle("olmoe-1b-7b")
+    for shape, batch in LONG_BATCH.items():
+        spec = bundle.shapes[shape]
+        require(spec.dims["seq_len"] == LONG_SEQ, f"{shape}: seq_len "
+                f"{spec.dims['seq_len']}")
+        bundle.shapes[shape] = dataclasses.replace(
+            spec, dims={**spec.dims, "global_batch": batch})
+    return bundle
+
+
+def _arg_bytes(args) -> int:
+    """The bytes of every tensor a step is passed (a model's parameters,
+    dict values, tensors)."""
+    import torch
+    total = 0
+    for a in args:
+        if isinstance(a, torch.nn.Module):
+            total += sum(p.numel() * p.element_size()
+                         for p in a.parameters())
+        elif isinstance(a, dict):
+            total += sum(t.numel() * t.element_size() for t in a.values())
+        elif isinstance(a, torch.Tensor):
+            total += a.numel() * a.element_size()
+    return total
+
+
+def _tie_argmax(a, b) -> bool:
+    """Each vector's argmax is a maximum of the other's, up to one bf16
+    step of the logits (ties at the logits' resolution)."""
+    import torch
+    ulp = max(float(a.abs().max()), float(b.abs().max())) * 2.0 ** -7
+    ia, ib = int(a.argmax()), int(b.argmax())
+    return (ia == ib or (float(b[ia]) >= float(b.max()) - ulp
+                         and float(a[ib]) >= float(a.max()) - ulp))
+
+
+def long_context_path() -> tuple[dict, dict]:
+    """OLMoE-1B-7B at ``CONFIG`` (random bf16 weights from a seeded
+    generator) through ``get_bundle`` and ``make_step``: ``prefill_32k``
+    at batch 1 (32,768 prompt tokens) and ``decode_32k`` at batch 8 over
+    caches of 32,768 positions at t = 32,767 (seeded random contents).
+    Returns the record and the calls and arguments captured for the kernel
+    and dry-run checks."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tfm
+    bundle = _long_bundle()
+    cfg = bundle.cfg
+    S, L = LONG_SEQ, cfg.n_layers
+    rec = {"phase": "long_context", "model": cfg.name,
+           "params": cfg.param_count(), "dtype": str(cfg.dtype),
+           "seq_len": S,
+           "reduced": {s: {"global_batch": [32 if s == "prefill_32k"
+                                            else 128, b]}
+                       for s, b in LONG_BATCH.items()}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S))
+                             .astype(np.int32), device="cuda")
+    caches = tfm.init_kv_cache(cfg, 1, S, device="cuda")
+    prefill = bundle.make_step("prefill_32k")
+    peaks = []
+
+    def reset_peak():
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    # layer 0's attention call of each warm-up step, captured
+    captured = {}
+    real_fa = tfm.flash_attention
+
+    def capture(key, positions):
+        def fa(q, k, v, q_start, kv_len, **kw):
+            out = real_fa(q, k, v, q_start, kv_len, **kw)
+            if key not in captured:
+                captured[key] = (q.clone(), k.clone(), v.clone(),
+                                 *positions(q.shape[0], q_start, kv_len),
+                                 kw)
+            return out
+        return fa
+
+    launches = {}
+
+    def gated(label: str, run, want: dict):
+        """One step timed with CUDA events; its launches exactly
+        ``want``."""
+        kernels.reset_launches()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        a.record()
+        out = run()
+        b.record()
+        b.synchronize()
+        got = {k: kernels.LAUNCHES.get(k, 0) for k in want}
+        require(got == want, f"long_context {label}: launches {got}, "
+                             f"expected {want}")
+        for k, n in kernels.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + n
+        return out, a.elapsed_time(b)
+
+    per_prefill = {"flash_attention": L, "flash_attention.tc": L,
+                   "grouped_matmul": 3 * L, "grouped_matmul.tc": 3 * L}
+    tfm.flash_attention = capture("prefill", lambda B, a, b: (a, b))
+    try:
+        with torch.no_grad():
+            (logits, _), warm_ms = gated(
+                "prefill", lambda: prefill(model, tokens, caches),
+                per_prefill)
+    finally:
+        tfm.flash_attention = real_fa
+    del logits
+    before = reset_peak()
+    times = []
+    with torch.no_grad():
+        for _ in range(LONG_PREFILLS):
+            (logits, _), ms = gated(
+                "prefill", lambda: prefill(model, tokens, caches),
+                per_prefill)
+            times.append(ms)
+    step_peak = torch.cuda.max_memory_allocated() - before
+    require(bool(torch.isfinite(logits).all()),
+            "long_context prefill: non-finite logits")
+    last = logits.float().clone()
+    del logits
+    prefill_ms = statistics.median(times)
+    rec["prefill"] = {"batch": 1, "tokens": S, "warmup_ms": warm_ms,
+                      "ms": times, "median_ms": prefill_ms,
+                      "tokens_per_s": S / (prefill_ms / 1e3),
+                      "launches_per_prefill": per_prefill,
+                      "step_peak_bytes": step_peak}
+    prefill_args = (model, tokens, caches)
+    arg_bytes = {"prefill_32k": _arg_bytes(prefill_args)}
+
+    # prefill(S - 1) and one tick with token S - 1 against prefill(S)
+    per_tick = {"flash_attention": L, "flash_attention.split": L,
+                "grouped_matmul": 3 * L, "grouped_matmul.tc": 3 * L}
+    with torch.no_grad():
+        gated(f"prefill of {S - 1}",
+              lambda: prefill(model, tokens[:, :S - 1], caches),
+              per_prefill)
+        (tick, _), _ = gated(
+            "tick after prefill", lambda: bundle.make_step("decode_32k")(
+                model, tokens[:, S - 1:], caches, S - 1), per_tick)
+    tick = tick.float()
+    diff = float((tick - last).abs().max())
+    require(_tie_argmax(last[0], tick[0]),
+            f"long_context: prefill({S - 1}) + one tick gives argmax "
+            f"{int(tick.argmax())}, prefill({S}) {int(last.argmax())}")
+    require(diff <= LONG_TICK_BOUND,
+            f"long_context: prefill({S - 1}) + one tick is {diff} from "
+            f"prefill({S}) (bound {LONG_TICK_BOUND})")
+    rec["tick_vs_prefill"] = {"max_abs_diff": diff,
+                              "bound": LONG_TICK_BOUND,
+                              "argmax": [int(last.argmax()),
+                                         int(tick.argmax())],
+                              "logit_max_abs": float(last.abs().max())}
+    del caches, tick, last, prefill_args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode_32k at batch 8 over seeded random caches of S positions
+    B = LONG_BATCH["decode_32k"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    shape = (L, B, S, cfg.n_kv_heads, cfg.hd)
+    caches = {kv: torch.randn(shape, generator=gen, device="cuda",
+                              dtype=cfg.dtype) for kv in ("k", "v")}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1))
+                           .astype(np.int32), device="cuda")
+    t = torch.tensor(S - 1, dtype=torch.int32, device="cuda")
+    decode = bundle.make_step("decode_32k")
+    decode_args = (model, toks, caches, t)
+    # the split route's phase takes per-batch positions
+    tfm.flash_attention = capture("decode", lambda B, a, b: tuple(
+        torch.full((B,), int(x), dtype=torch.int32, device="cuda")
+        for x in (a, b)))
+    try:
+        with torch.no_grad():
+            (out, _), warm_ms = gated("tick", lambda: decode(*decode_args),
+                                      per_tick)
+    finally:
+        tfm.flash_attention = real_fa
+    before = reset_peak()
+    times = []
+    with torch.no_grad():
+        for _ in range(LONG_TICKS):
+            (out, _), ms = gated("tick", lambda: decode(*decode_args),
+                                 per_tick)
+            times.append(ms)
+    require(bool(torch.isfinite(out).all()),
+            "long_context tick: non-finite logits")
+    tick_ms = statistics.median(times)
+    rec["decode"] = {"batch": B, "cached_keys": S, "t": S - 1,
+                     "warmup_ms": warm_ms, "ms": times,
+                     "median_ms": tick_ms,
+                     "tokens_per_s": B / (tick_ms / 1e3),
+                     "launches_per_tick": per_tick,
+                     "step_peak_bytes": torch.cuda.max_memory_allocated()
+                     - before}
+    arg_bytes["decode_32k"] = _arg_bytes(decode_args)
+    reset_peak()
+    peak_all = max(peaks)
+    rec["max_memory_allocated"] = peak_all
+    rec["launches"] = launches
+    require(peak_all <= LONG_PEAK_BYTES,
+            f"long_context: peak {peak_all} bytes > {LONG_PEAK_BYTES}")
+    measured = {"prefill_32k": {"ms": prefill_ms,
+                                "step_peak_bytes":
+                                rec["prefill"]["step_peak_bytes"]},
+                "decode_32k": {"ms": tick_ms,
+                               "step_peak_bytes":
+                               rec["decode"]["step_peak_bytes"]}}
+    del model, caches, decode_args, out, toks, t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, {"calls": captured, "arg_bytes": arg_bytes,
+                 "measured": measured}
+
+
+def long_attention_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
+                         want_route: str, rows: int = LONG_CHECK_ROWS,
+                         reps: int = 5) -> dict:
+    """K2 on a captured causal prefill too long for its plain version's
+    score matrix: the route it must take (its launch counted), the last
+    ``rows`` query rows held to the plain version over every key, the
+    time of one call, SDPA ``is_causal`` on the same inputs, the plain
+    version's time on those rows and the bound of the whole call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         route)
+    from repro_torch.kernels.flash_attention.ref import (admissible_pairs,
+                                                         flash_attention_ref)
+    B, Sq, Kh, G, hd = q.shape
+    Skv = k.shape[1]
+    which = route(q, k, v)
+    require(which == want_route,
+            f"{label}: route {which}, expected {want_route}")
+    require(int(q_start) == 0 and int(kv_len) == Sq == Skv,
+            f"{label}: not a causal prefill from position 0")
+    counted = kernels.LAUNCHES.get(f"flash_attention.{which}", 0)
+    got = flash_attention(q, k, v, q_start, kv_len, **kw)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES.get(f"flash_attention.{which}", 0)
+            == counted + 1, f"{label}: no flash_attention.{which} launch")
+    tail = q[:, Sq - rows:]
+    want = flash_attention_ref(tail, k, v, Sq - rows, kv_len, **kw)
+    rec = _verdict(label, got[:, Sq - rows:], want, ATTENTION_TOL)
+    rec["checked_rows"] = rows
+    del want
+    pairs = admissible_pairs(B, Sq, Skv, q_start, kv_len,
+                             kw.get("window")) * Kh * G
+    esize = q.element_size()
+    nbytes = esize * (2 * q.numel() + 2 * B * Skv * Kh * hd)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 4 * hd * pairs / BF16_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, q_start, kv_len,
+                                                **kw), reps)
+    qs = q.permute(0, 2, 3, 1, 4).reshape(B, Kh * G, Sq, hd)
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=G > 1), reps)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(
+        tail, k, v, Sq - rows, kv_len, **kw), 3, warmup=1)
+    rec.update({"phase": "kernel", "name": "flash_attention", "input": label,
+                "route": which,
+                "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Kh": Kh, "G": G,
+                          "hd": hd},
+                "dtype": str(q.dtype), "admissible_pairs": pairs,
+                "bytes": nbytes, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "plain_rows": rows,
+                "library_ms": library_ms, "library": "SDPA is_causal",
+                "bound_ms": bound_ms,
+                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                             else "operations"),
+                "pct_of_bound": 100 * bound_ms / kernel_ms,
+                "kernel_over_library": kernel_ms / library_ms})
+    return rec
+
+
+def dryrun_path(long: dict) -> dict:
+    """``launch/dryrun.py``'s ``run_cell`` for every arch x shape x both
+    production meshes (every cell OK or SKIPPED, the skipped ones exactly
+    ``DRYRUN_SKIPS``), then the two long-context cells at their cut batch
+    on a (1, 1) mesh beside what the card measured: the predicted
+    arguments equal to the bytes of the tensors passed, the predicted
+    temporaries beside the step's peak less what was allocated before it,
+    and the measured ms beside max(t_compute, t_memory)."""
+    from repro_torch.configs import get_bundle, list_archs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    t0 = time.perf_counter()
+    cells, skipped, status = 0, set(), {}
+    for arch in list_archs():
+        for shape in get_bundle(arch).shape_names():
+            for multi in (False, True):
+                r = run_cell(arch, shape, multi)
+                cells += 1
+                status[r["status"]] = status.get(r["status"], 0) + 1
+                require(r["status"] in ("OK", "SKIPPED"),
+                        f"dryrun {arch} {shape} {r['mesh']}: "
+                        f"{r.get('error')}")
+                if r["status"] == "SKIPPED":
+                    skipped.add((arch, shape))
+    require(skipped == DRYRUN_SKIPS,
+            f"dryrun: skipped {sorted(skipped)}, expected "
+            f"{sorted(DRYRUN_SKIPS)}")
+    rec = {"phase": "dryrun", "cells": cells, "status": status,
+           "skipped": sorted(f"{a} {s}" for a, s in skipped),
+           "all_cells_s": time.perf_counter() - t0, "long_context": {}}
+    bundle = _long_bundle()
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    for shape, got in long["measured"].items():
+        r = run_cell("olmoe-1b-7b", shape, bundle=bundle, mesh=mesh)
+        require(r["status"] == "OK", f"dryrun {shape} at the cut batch: "
+                                     f"{r.get('error')}")
+        b = r["bytes_per_device"]
+        passed = long["arg_bytes"][shape]
+        require(b["arguments"] == passed,
+                f"dryrun {shape}: predicted arguments {b['arguments']}, "
+                f"the tensors passed hold {passed} bytes")
+        roof = r["roofline"]
+        bound_ms = 1e3 * max(roof["t_compute_s"], roof["t_memory_s"])
+        rec["long_context"][shape] = {
+            "batch": LONG_BATCH[shape], "arguments": b["arguments"],
+            "arguments_passed": passed, "outputs": b["outputs"],
+            "temps_predicted": b["temps"],
+            "temps_measured": got["step_peak_bytes"],
+            "temps_method": b["temps_method"],
+            "measured_ms": got["ms"], "roofline_ms": bound_ms,
+            "t_compute_ms": 1e3 * roof["t_compute_s"],
+            "t_memory_ms": 1e3 * roof["t_memory_s"],
+            "dominant": roof["dominant"],
+            "measured_over_roofline": got["ms"] / bound_ms,
+            "flops": roof["flops"], "bytes": roof["bytes"],
+            "run_s": r["run_s"]}
+    return rec
+
+
 # ------------------------------------------------------------------ recsys
 
 def recsys_path() -> tuple[dict, dict, dict]:
@@ -3319,7 +3861,7 @@ def lm_run(preset: str, batch: int, seq: int, steps: int,
             ost = opt.init(opt.AdamWConfig(), fresh.parameters())
             ck = CheckpointManager(kw["ckpt_dir"], keep=2, async_write=False)
             t = time.perf_counter()
-            at, _ = ck.restore_latest((fresh, ost))
+            at, rec["elastic"] = elastic_resume(cfg, ck, (fresh, ost))
             torch.cuda.synchronize()
             restore_s = time.perf_counter() - t
             require(at == steps, f"lm_train {preset}: latest checkpoint "
@@ -3378,6 +3920,37 @@ def lm_run(preset: str, batch: int, seq: int, steps: int,
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return rec, captured
+
+
+def elastic_resume(cfg, ckpt, like) -> tuple[int, dict]:
+    """``like`` restored from ``ckpt``'s newest checkpoint through
+    ``train/elastic.py::elastic_restart`` onto ``make_host_mesh()`` (a
+    (1, 1) ``DeviceMesh`` over a one-rank NCCL group, made here and
+    destroyed after where none exists) with the LM bundle's training
+    shardings: on one device the state keeps its objects, in place.
+    Returns the step and a record."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import mesh_axes
+    from repro_torch.configs.lm_common import LMBundle
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.elastic import elastic_restart
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        mesh = make_host_mesh()
+        bundle = LMBundle(cfg)
+        step, placed = elastic_restart(
+            ckpt, like, mesh,
+            lambda m: bundle.shardings(m, "train_4k")[0][:2])
+        require(placed is like, "elastic: a one-device mesh must keep the "
+                                "state's objects")
+        return step, {"mesh": mesh_axes(mesh),
+                      "device_type": mesh.device_type, "step": step}
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def lm_train_path() -> tuple[list[dict], dict]:
@@ -3732,6 +4305,22 @@ def run() -> int:
     torch.cuda.empty_cache()
     emit(model_check())
 
+    archs_rec = archs_path()
+    emit(archs_rec)
+    long_rec, long = long_context_path()
+    emit(long_rec)
+    q, k, v, q_start, kv_len, kw = long["calls"].pop("prefill")
+    long_phases = [long_attention_phase("prefill_32k", q, k, v, q_start,
+                                        kv_len, kw, "tc")]
+    del q, k, v
+    long_phases.append(attention_phase(
+        "decode_32k", *long["calls"].pop("decode"), "split"))
+    for rec in long_phases:
+        emit(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dryrun_path(long))
+
     recsys_rec, copy_rec, bags = recsys_path()
     emit(copy_rec)
     emit(recsys_rec)
@@ -3824,8 +4413,10 @@ def run() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:69",
-            fa_phases[0], fa_phases + [fa_train, fa_moe],
+            fa_phases[0], fa_phases + [fa_train, fa_moe] + long_phases,
             serve_rec["launches"].get("flash_attention", 0)
+            + archs_rec["launches"].get("flash_attention", 0)
+            + long_rec["launches"].get("flash_attention", 0)
             + lm_launches.get("flash_attention", 0)),
         kernel_entry(
             "grouped_matmul",
@@ -3833,6 +4424,8 @@ def run() -> int:
             "src/repro/kernels/grouped_matmul/grouped_matmul.py:38",
             gmm_phases[0], gmm_phases + gmm_bwd,
             serve_rec["launches"].get("grouped_matmul", 0)
+            + archs_rec["launches"].get("grouped_matmul", 0)
+            + long_rec["launches"].get("grouped_matmul", 0)
             + lm_launches.get("grouped_matmul", 0)),
         kernel_entry(
             "flash_attention_bwd",
@@ -3847,6 +4440,7 @@ def run() -> int:
             "src/repro/kernels/embedding_bag/embedding_bag.py:50",
             bag_phases[1], bag_phases,
             recsys_rec["launches"].get("embedding_bag", 0)
+            + archs_rec["launches"].get("embedding_bag", 0)
             + train_rec["launches"].get("embedding_bag", 0)),
         kernel_entry(
             "embedding_bag_bwd",

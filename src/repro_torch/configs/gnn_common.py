@@ -7,11 +7,12 @@ geometric models (SchNet/NequIP/EquiformerV2) also take positions on every
 shape.  ``minibatch_lg`` is the size of a subgraph sampled by
 ``graphdb.sampler`` (fanout 15-10 from 1024 seeds).
 
-Ported: the config, the optimizer config, the train step, the batch specs
-(``(shape, dtype)`` pairs) and concrete batches, and the analytic FLOP
-count.  The mesh members of the reference's bundle
-(``init_params_abstract``, ``input_specs``, ``_param_pspec``,
-``shardings``) belong to the launch tooling, not yet ported.
+Every member of the reference's bundle is ported: the config, the
+optimizer config, the train step, the abstract model and inputs on the
+meta device (``init_params_abstract``, ``input_specs``), the batch specs
+(``(shape, dtype)`` pairs) and concrete batches, the shardings
+(``_param_pspec``, ``shardings``, in the reference's tree format) and the
+analytic FLOP count.
 """
 from __future__ import annotations
 
@@ -20,9 +21,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.base import (ArchBundle, P, ShapeSpec, dp_axes,
+                                      ns, opt_state_shardings,
+                                      params_spec_like, reference_specs)
 from repro_torch.models.common import resolve_device
+from repro_torch.models.gnn.common import ParamTree
 from repro_torch.train import optimizer as opt_mod
+
+_TORCH_DTYPES = {np.int32: torch.int32, np.float32: torch.float32}
 
 GNN_SHAPES = {
     "full_graph_sm": ShapeSpec(
@@ -51,7 +57,16 @@ SMOKE_SHAPES = {
 }
 
 
-class GNNBundle:
+def _model_class(module) -> type:
+    """The parameter module a GNN model module defines."""
+    return next(v for v in vars(module).values()
+                if isinstance(v, type) and issubclass(v, ParamTree)
+                and v.__module__ == module.__name__)
+
+
+class GNNBundle(ArchBundle):
+    family = "gnn"
+
     def __init__(self, arch_id: str, module, make_cfg: Callable,
                  smoke: bool = False, *, flops_fn: Callable):
         """make_cfg(shape_spec) -> model config; ``smoke`` picks the small
@@ -59,15 +74,18 @@ class GNNBundle:
         self.arch_id = arch_id
         self.module = module
         self.make_cfg = make_cfg
+        self.smoke = smoke
         self.shapes = dict(SMOKE_SHAPES if smoke else GNN_SHAPES)
         self._flops_fn = flops_fn
-
-    def shape_names(self) -> list[str]:
-        return list(self.shapes)
 
     # ----------------------------------------------------------------- cfg
     def model_cfg(self, shape: str):
         return self.make_cfg(self.shapes[shape])
+
+    def init_params_abstract(self, shape: str = None):
+        """The model of ``shape``'s config on the meta device."""
+        return _model_class(self.module)(self.model_cfg(shape),
+                                         torch.device("meta"))
 
     def adam_cfg(self) -> opt_mod.AdamWConfig:
         return opt_mod.AdamWConfig(lr=1e-3, total_steps=10000,
@@ -119,6 +137,48 @@ class GNNBundle:
         if self.needs_positions():
             batch["positions"] = ((N, 3), np.float32)
         return batch
+
+    def input_specs(self, shape: str):
+        """(model, opt_state, batch) on the meta device."""
+        model = self.init_params_abstract(shape)
+        batch = {k: torch.empty(shp, dtype=_TORCH_DTYPES[dt], device="meta")
+                 for k, (shp, dt) in self._batch_specs(shape).items()}
+        return (model, self.abstract_adam_state(model), batch)
+
+    # ------------------------------------------------------------ shardings
+    def _param_pspec(self, path, leaf):
+        name = "/".join(path)
+        nd = len(leaf.shape)
+        if "so2" in name and nd == 2:       # EquiformerV2 SO(2) mixings
+            return P(None, "model")
+        if "ffn1" in name and nd == 2:
+            return P(None, "model")
+        return P(*([None] * nd))
+
+    def shardings(self, mesh, shape: str):
+        dp = dp_axes(mesh)
+        model = self.init_params_abstract(shape)
+        params, ost = reference_specs(
+            (model, self.abstract_adam_state(model)))
+        pshard = params_spec_like(
+            params, lambda path, leaf: ns(mesh, *self._param_pspec(path, leaf)))
+        oshard = opt_state_shardings(mesh, pshard, ost)
+
+        bspec = {}
+        for k, (shp, _) in self._batch_specs(shape).items():
+            if k == "edges":
+                bspec[k] = ns(mesh, None, dp)
+            elif k == "energy":
+                bspec[k] = ns(mesh, dp)
+            else:
+                bspec[k] = ns(mesh, dp, *([None] * (len(shp) - 1)))
+        hints = {
+            "edge_msg": ns(mesh, dp),
+            "node_hidden": ns(mesh, dp),
+        }
+        in_sh = (pshard, oshard, bspec)
+        out_sh = (pshard, oshard, None)
+        return in_sh, out_sh, hints
 
     # ------------------------------------------------------------- concrete
     def host_batch(self, shape: str, seed: int = 0) -> dict:

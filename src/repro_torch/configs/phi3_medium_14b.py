@@ -1,5 +1,6 @@
 """Phi-3-medium-14B [arXiv:2404.14219]: 40L d=5120 40H (GQA kv=10)
 d_ff=17920 vocab 100352, RoPE SwiGLU GQA."""
+from repro_torch.configs.lm_common import LMBundle
 from repro_torch.models.transformer import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -9,3 +10,8 @@ CONFIG = TransformerConfig(
 SMOKE = TransformerConfig(
     name="phi3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
     d_ff=96, vocab_size=256, block_q=32, block_kv=32)
+
+
+def bundle(smoke: bool = False) -> LMBundle:
+    return LMBundle(SMOKE if smoke else CONFIG, smoke=smoke,
+                    supports_long=False)

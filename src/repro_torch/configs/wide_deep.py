@@ -1,17 +1,21 @@
 """wide-deep [arXiv:1606.07792]: 40 sparse fields, embed_dim 32,
 MLP 1024-512-256, concat interaction.
 
-The reference's ``RecsysBundle`` as plain functions: ``make_step`` (the
-step callable of a shape kind: train, serve or retrieval), ``adam_cfg``,
-``host_batch``/``make_batch`` (the batch half of ``make_concrete``),
-``make_concrete`` and ``model_flops``.
+The reference's ``RecsysBundle`` (``bundle()``), built over this
+module's functions: ``make_step`` (the step callable of a shape kind:
+train, serve or retrieval), ``adam_cfg``, ``host_batch``/``make_batch``
+(the batch half of ``make_concrete``), ``make_concrete`` and
+``model_flops``; the bundle adds the abstract model and inputs on the meta
+device and the shardings in the reference's tree format.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.base import (ArchBundle, P, ShapeSpec, dp_axes,
+                                      ns, opt_state_shardings,
+                                      params_spec_like, reference_specs)
 from repro_torch.models import recsys
 from repro_torch.models.common import resolve_device
 from repro_torch.train import optimizer as opt
@@ -114,3 +118,95 @@ def model_flops(cfg: recsys.WideDeepConfig, shape: ShapeSpec) -> float:
     if shape.kind == "retrieval":
         return fwd + 2.0 * d["n_candidates"] * cfg.item_dim
     return float(fwd)
+
+
+class RecsysBundle(ArchBundle):
+    family = "recsys"
+    arch_id = "wide-deep"
+
+    def __init__(self, smoke: bool = False):
+        self.smoke = smoke
+        self.cfg = SMOKE if smoke else CONFIG
+        self.shapes = dict(SMOKE_SHAPES if smoke else SHAPES)
+
+    def init_params_abstract(self) -> recsys.WideDeep:
+        return recsys.WideDeep(self.cfg, torch.device("meta"))
+
+    def adam_cfg(self) -> opt.AdamWConfig:
+        return adam_cfg()
+
+    def make_step(self, shape: str):
+        return make_step(self.cfg, self.shapes[shape].kind)
+
+    def _batch_specs(self, shape: str) -> dict:
+        """Name -> (shape, dtype) of every batch tensor."""
+        d = self.shapes[shape].dims
+        B = d["batch"]
+        cfg = self.cfg
+        base = {
+            "sparse_ids": ((B, cfg.n_sparse, cfg.max_bag), torch.int32),
+            "dense": ((B, cfg.n_dense), torch.float32),
+        }
+        kind = self.shapes[shape].kind
+        if kind == "retrieval":
+            base["candidate_ids"] = ((d["n_candidates"],), torch.int32)
+            return base
+        base["wide_ids"] = ((B, cfg.n_wide), torch.int32)
+        if kind == "train":
+            base["labels"] = ((B,), torch.float32)
+        return base
+
+    def input_specs(self, shape: str):
+        """The step's arguments on the meta device."""
+        model = self.init_params_abstract()
+        batch = {k: torch.empty(shp, dtype=dt, device="meta")
+                 for k, (shp, dt) in self._batch_specs(shape).items()}
+        if self.shapes[shape].kind == "train":
+            return (model, self.abstract_adam_state(model), batch)
+        return (model, batch)
+
+    def _param_pspec(self, path, leaf):
+        name = "/".join(path)
+        nd = len(leaf.shape)
+        if "table" in name or "items" in name:
+            return P("model", None)
+        if name.endswith("('wide',)") or "wide'" in name:
+            return P("model") if nd == 1 else P(*([None] * nd))
+        return P(*([None] * nd))
+
+    def shardings(self, mesh, shape: str):
+        dp = dp_axes(mesh)
+        model = self.init_params_abstract()
+        params = reference_specs((model,))[0]
+        pshard = params_spec_like(
+            params, lambda p, l: ns(mesh, *self._param_pspec(p, l)))
+        kind = self.shapes[shape].kind
+        bspec = {}
+        B = self.shapes[shape].dims["batch"]
+        for k, (shp, _) in self._batch_specs(shape).items():
+            if k == "candidate_ids":
+                bspec[k] = ns(mesh, dp)
+            elif B == 1:       # retrieval: a single query is replicated
+                bspec[k] = ns(mesh, *([None] * len(shp)))
+            else:
+                bspec[k] = ns(mesh, dp, *([None] * (len(shp) - 1)))
+        hints = {"bag_emb": ns(mesh, dp),
+                 "mlp_hidden": ns(mesh, dp),
+                 "cand_emb": ns(mesh, dp, None)}
+        if kind == "train":
+            ost = reference_specs((model, self.abstract_adam_state(model)))[1]
+            oshard = opt_state_shardings(mesh, pshard, ost)
+            return ((pshard, oshard, bspec), (pshard, oshard, None), hints)
+        return ((pshard, bspec), ns(mesh, dp), hints)
+
+    def make_concrete(self, shape: str, seed: int = 0, device=None):
+        """``make_concrete`` of this bundle's config (``None`` means
+        cuda)."""
+        return make_concrete(self.cfg, self.shapes[shape], seed, device)
+
+    def model_flops(self, shape: str) -> float:
+        return model_flops(self.cfg, self.shapes[shape])
+
+
+def bundle(smoke: bool = False) -> RecsysBundle:
+    return RecsysBundle(smoke=smoke)

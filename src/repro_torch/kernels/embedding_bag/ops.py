@@ -11,7 +11,10 @@ kernel before the launch, from dtype, shape, stride and alignment alone:
 where every row and output row is whole 16-byte pieces, ``"warp"`` (a warp
 a bag, element loads) for the rest.  On the CPU it runs the plain version in
 ``ref.py``.  Where the table requires a gradient it runs through
-``EmbeddingBagFn``, whose backward is ``embedding_bag_backward``.
+``EmbeddingBagFn``, whose backward is ``embedding_bag_backward``.  On the
+meta device (the dry run) both return empty outputs and report the
+kernel's work (``kernels.report_meta``: D adds a slot; the ids, a row a
+slot and the output), and run neither a kernel nor the plain version.
 
 ``embedding_bag_backward(ids, grad_bags, V)`` is the table's gradient, a
 dense fp32 ``[V, D]``: on a CUDA device the deterministic scatter-add of
@@ -30,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, nbytes, report_meta
 from repro_torch.kernels.embedding_bag.ref import (
     bag_width, bags_per_row, embedding_bag_backward_ref, embedding_bag_ref)
 
@@ -142,7 +145,7 @@ def _embedding_bag(ids: torch.Tensor, table: torch.Tensor,
     device = ids.device
     if device.type == "cpu":
         return embedding_bag_ref(ids, table, out=out)
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"{NAME}: no kernel for device {device}")
     N, L = ids.shape
     V, D = table.shape
@@ -152,6 +155,11 @@ def _embedding_bag(ids: torch.Tensor, table: torch.Tensor,
     else:
         result = out
         G, row_stride = bags_per_row(N, D, out), out.stride(0)
+    if device.type == "meta":
+        report_meta(NAME, N * L * D,
+                    nbytes(ids) + (N * L + N) * D * table.element_size(),
+                    table.dtype)
+        return result
     if N == 0 or D == 0:
         return result
     if L == 0:
@@ -219,6 +227,12 @@ def embedding_bag_backward(ids: torch.Tensor, grad_bags: torch.Tensor,
     device = ids.device
     if device.type == "cpu":
         return embedding_bag_backward_ref(ids, grad_bags, V)
+    if device.type == "meta":
+        out = torch.empty((V, D), dtype=torch.float32, device=device)
+        report_meta(BWD_NAME, N * L * D,
+                    nbytes(ids, out) + N * D * grad_bags.element_size(),
+                    torch.float32)
+        return out
     if device.type != "cuda":
         raise ValueError(f"{BWD_NAME}: no kernel for device {device}")
     out = torch.zeros((V, D), dtype=torch.float32, device=device)

@@ -10,7 +10,10 @@ over 256-key chunks of the cache, then a log-sum-exp merge) for at most 8
 query rows per kv head, ``"tc"`` (TMA and wgmma tiles) for bf16 prefill,
 ``"rows"`` (fp32 FMA tiles: warp-owned query rows, 16-byte shared-memory
 reads, cp.async key stages) for the rest.  On the CPU it runs the plain
-version in ``ref.py``.
+version in ``ref.py``.  On the meta device (the dry run) it returns empty
+outputs and reports the kernel's work (``kernels.report_meta``: 4 hd
+flops an admissible pair, ``ref.admissible_pairs``; q, k, v read and the
+output written once), and runs neither a kernel nor the plain version.
 
 Launch counts (``repro_torch.kernels.LAUNCHES``): ``flash_attention`` for
 every call, and ``flash_attention.tc``, ``.split`` or ``.rows`` for the
@@ -29,7 +32,9 @@ log-sum-exp, output and D rows recomputed first.  It counts once as
 ``.recompute``.  On the CPU it runs the plain version
 (``ref.flash_attention_bwd_ref``: the closed form the kernels compute when
 given the output and log-sum-exp, else autograd through the plain
-forward, which is what ``FlashAttentionFn`` takes there).
+forward, which is what ``FlashAttentionFn`` takes there).  On the meta
+device it reports 10 hd flops an admissible pair (the scores again, dP,
+dq, dk and dv) and returns empty gradients.
 """
 from __future__ import annotations
 
@@ -38,9 +43,10 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, nbytes, report_meta
 from repro_torch.kernels.flash_attention.ref import (
-    flash_attention_bwd_ref, flash_attention_ref, per_batch)
+    admissible_pairs, flash_attention_bwd_ref, flash_attention_ref,
+    per_batch)
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -132,10 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     _check_options(window, softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        B = q.shape[0]
-        return FlashAttentionFn.apply(
-            q, k, v, per_batch(q_start, B, q.device),
-            per_batch(kv_len, B, q.device), window, softcap)
+        return FlashAttentionFn.apply(q, k, v, q_start, kv_len, window,
+                                      softcap)
     return _forward(q, k, v, q_start, kv_len, window, softcap)[0]
 
 
@@ -157,23 +161,29 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with its gradient from ``flash_attention_bwd``
-    (``q_start`` and ``kv_len`` as ``[B]`` int tensors).  Where
-    ``saves_lse`` holds, the output and its log-sum-exp are saved and the
-    backward takes its ``saved`` route; under ``torch.utils.checkpoint``
-    the recompute produces both again."""
+    (``q_start`` and ``kv_len`` ints or ``[B]`` int tensors, passed on as
+    given).  Where ``saves_lse`` holds, the output and its log-sum-exp are
+    saved and the backward takes its ``saved`` route; under
+    ``torch.utils.checkpoint`` the recompute produces both again."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_start, kv_len, window, softcap):
         out, lse = _forward(q, k, v, q_start, kv_len, window, softcap,
                             lse=saves_lse(q, k, v))
-        ctx.save_for_backward(q, k, v, q_start, kv_len,
-                              None if lse is None else out, lse)
+        pos = (q_start, kv_len)
+        ctx.ints = [None if isinstance(p, torch.Tensor) else p for p in pos]
+        ctx.save_for_backward(q, k, v, None if lse is None else out, lse,
+                              *(p for p in pos if isinstance(p,
+                                                             torch.Tensor)))
         ctx.options = {"window": window, "softcap": softcap}
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, q_start, kv_len, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, *tensors = ctx.saved_tensors
+        tensors = iter(tensors)
+        q_start, kv_len = (next(tensors) if p is None else p
+                           for p in ctx.ints)
         dq, dk, dv = flash_attention_bwd(q, k, v, dout, q_start, kv_len,
                                          out=out, lse=lse, **ctx.options)
         return dq, dk, dv, None, None, None, None
@@ -192,6 +202,8 @@ def _forward(q, k, v, q_start, kv_len, window, softcap, lse=False):
                                        return_lse=True)
         return flash_attention_ref(q, k, v, q_start, kv_len, window=window,
                                    softcap=softcap), None
+    if device.type == "meta":
+        return _meta_forward(q, k, v, q_start, kv_len, window, lse)
     if device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {device}")
     B, Sq, Kh, G, hd = q.shape
@@ -247,6 +259,19 @@ def _forward(q, k, v, q_start, kv_len, window, softcap, lse=False):
     return out, rows_lse
 
 
+def _meta_forward(q, k, v, q_start, kv_len, window, lse):
+    """The forward on the meta device: empty outputs, the kernel's work
+    reported."""
+    B, Sq, Kh, G, hd = q.shape
+    out = torch.empty_like(q)
+    pairs = admissible_pairs(B, Sq, k.shape[1], q_start, kv_len,
+                             window) * Kh * G
+    report_meta(NAME, 4 * hd * pairs, nbytes(q, k, v, out), q.dtype)
+    rows_lse = (torch.empty((B, Kh, Sq * G), dtype=torch.float32,
+                            device=q.device) if lse else None)
+    return out, rows_lse
+
+
 def _bwd_kernel_fn():
     fn = _build.load(BWD_SOURCE).flash_attention_bwd
     if fn.argtypes is None:
@@ -298,6 +323,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_ref(q, k, v, dout.to(q.dtype), q_start,
                                        kv_len, window=window,
                                        softcap=softcap, out=out, lse=lse)
+    if device.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        pairs = admissible_pairs(B, Sq, k.shape[1], q_start, kv_len,
+                                 window) * Kh * G
+        report_meta(BWD_NAME, 10 * hd * pairs,
+                    nbytes(q, k, v, dout, out, lse, *grads), q.dtype)
+        return grads
     if device.type != "cuda":
         raise ValueError(f"{BWD_NAME}: no kernel for device {device}")
     if hd not in HEAD_DIMS:

@@ -25,6 +25,21 @@ def per_batch(value, batch: int, device) -> torch.Tensor:
                       device=device)
 
 
+def admissible_pairs(B: int, Sq: int, Skv: int, q_start, kv_len,
+                     window=None) -> int:
+    """The (query, key) pairs ``_mask`` admits, summed over the batch, for
+    int ``q_start`` and ``kv_len``; where either is a tensor (which may
+    lie on the meta device, so it is not read) every pair of the ``Sq x
+    Skv`` block counts."""
+    if isinstance(q_start, torch.Tensor) or isinstance(kv_len, torch.Tensor):
+        return B * Sq * Skv
+    pos = torch.arange(Sq, dtype=torch.int64) + int(q_start)
+    hi = torch.clamp(pos, max=min(int(kv_len), Skv) - 1)
+    lo = (torch.zeros_like(pos) if window is None
+          else torch.clamp(pos - int(window) + 1, min=0))
+    return B * int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
 def _mask(q_start, kv_len, B: int, Sq: int, Skv: int, window, dev):
     """``[B, 1, 1, Sq, Skv]``: may query ``i`` of batch ``b`` (at position
     ``q_start[b] + i``) attend to key ``j``."""

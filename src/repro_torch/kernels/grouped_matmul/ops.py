@@ -12,7 +12,10 @@ whose rows TMA can address, the scalar kernel (``"simt"``) for the rest,
 which reads both layouts in place, on the output tiles ``simt_tile``
 picks.  The tensor-core kernel takes no layout flags: a
 transposed operand routed there is copied into its logical layout first.
-On the CPU it runs the plain version in ``ref.py``.
+On the CPU it runs the plain version in ``ref.py``.  On the meta device
+(the dry run) it returns an empty output and reports the kernel's work
+(``kernels.report_meta``: 2 G M K N flops, x and w read and the output
+written once).
 
 Under autograd (grad enabled and an operand that requires it) the call
 goes through ``GroupedMatmulFn``, whose backward is two more calls of the
@@ -32,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, nbytes, report_meta
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
 NAME = "grouped_matmul"
@@ -149,6 +152,10 @@ def _grouped_matmul(x: torch.Tensor, w: torch.Tensor, trans_x: bool = False,
     device = x.device
     if device.type == "cpu":
         return grouped_matmul_ref(x, w, trans_x=trans_x, trans_w=trans_w)
+    if device.type == "meta":
+        out = torch.empty((G, M, N), dtype=x.dtype, device=device)
+        report_meta(NAME, 2 * G * M * K * N, nbytes(x, w, out), x.dtype)
+        return out
     if device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {device}")
     if x.dtype not in _DTYPES:

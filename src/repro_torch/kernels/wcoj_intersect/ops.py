@@ -9,7 +9,11 @@ nvcc at first use) on the current stream, or raises; it never falls back.
 ``index``, one aligned node a level; rows of fewer than ``SMALL_ROW`` keys
 binary-searched in place) where an index is given and both bases are
 32-byte aligned, ``"search"`` (a binary search over the row) otherwise.
-On the CPU it runs the plain version in ``ref.py``.
+On the CPU it runs the plain version in ``ref.py``.  On the meta device
+(the dry run) it returns empty outputs and reports the kernel's work
+(``kernels.report_meta``: no flops; the rows and targets, two ``indptr``
+entries a probe, and the outputs), and runs neither a kernel nor the plain
+version.
 
 ``build_search_index(indices)`` builds the index once per CSR, on the CSR's
 device, with no host sync: level 1 is ``indices[::NODE]`` (the first key of
@@ -29,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, count_launch
+from repro_torch.kernels import _build, count_launch, nbytes, report_meta
 from repro_torch.kernels.wcoj_intersect.ref import wcoj_intersect_ref
 
 NAME = "wcoj_intersect"
@@ -148,11 +152,15 @@ def wcoj_intersect(indptr: torch.Tensor, indices: torch.Tensor,
     which = route(indices, index)
     if device.type == "cpu":
         return wcoj_intersect_ref(indptr, indices, rows, targets, pos_map)
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"{NAME}: no kernel for device {device}")
     n = rows.shape[0]
     found = torch.empty(n, dtype=torch.bool, device=device)
     epos = torch.empty(n, dtype=torch.int32, device=device)
+    if device.type == "meta":
+        report_meta(NAME, 0, nbytes(rows, targets, found, epos)
+                    + 2 * n * indptr.element_size(), indices.dtype)
+        return found, epos
     if n == 0:
         return found, epos
     fn = _probe_fn(which)

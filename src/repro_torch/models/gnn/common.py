@@ -8,8 +8,8 @@ the port lies on this path.
 
 Indices: ``safe_edges`` returns int64 ``src`` / ``dst`` (``scatter_reduce``
 and ``index_add_`` take int64), once per forward; the layers reuse them.
-The reference's ``shard_hint`` calls are left out (mesh placement is not
-ported).  Every GNN module's ``make_train_step`` returns the shared step of
+The reference's ``shard_hint`` calls stand at its sites
+(``models/sharding.py``: no-ops outside the dry run).  Every GNN module's ``make_train_step`` returns the shared step of
 ``repro_torch.train.step``.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import dense_init_
+from repro_torch.models.sharding import shard_hint
 
 # ------------------------------------------------------------- parameters
 
@@ -43,6 +44,23 @@ class ParamTree(nn.Module):
                 shape, self._laws[k] = v
                 self.register_parameter(k, nn.Parameter(torch.empty(
                     shape, dtype=torch.float32, device=device)))
+
+    # lists of layers the reference stacks on a leading axis
+    STACKED: tuple = ()
+
+    def reference_tree(self) -> dict:
+        """The parameters in the reference's tree: own leaves by name,
+        sub-trees as dicts, a list of sub-trees as a list; a list named in
+        ``STACKED`` as one sub-tree whose leaves are the lists of their
+        per-layer parameters (the reference stacks them)."""
+        out = {k: getattr(self, k) for k in self._laws}
+        for k, child in self.named_children():
+            if not isinstance(child, nn.ModuleList):
+                out[k] = child.reference_tree()
+                continue
+            subs = [c.reference_tree() for c in child]
+            out[k] = _stack(subs) if k in self.STACKED else subs
+        return out
 
     @torch.no_grad()
     def draw(self, generator: torch.Generator) -> "ParamTree":
@@ -88,6 +106,15 @@ class ParamTree(nn.Module):
                 for i, (sub, sa) in enumerate(zip(subs, a)):
                     sub.load(sa, f"{name}.{i}")
         return self
+
+
+def _stack(trees: list):
+    """Trees of one structure as one tree of lists (leaf by leaf)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack([t[i] for t in trees]) for i in range(len(trees[0]))]
+    return list(trees)
 
 
 # ------------------------------------------------------------------ edges
@@ -166,6 +193,7 @@ def gather_dense_scatter(x: torch.Tensor, w: torch.Tensor,
     x [N, F], w [F, G] -> [N, G]."""
     src, dst, m = safe_edges(edges)
     msg = (take_rows(x, src) @ w) * m[:, None].to(x.dtype)
+    msg = shard_hint(msg, "edge_msg")
     return segment_sum(msg, dst, num_nodes)
 
 

@@ -42,6 +42,7 @@ from repro_torch.models.gnn.common import (ParamTree, edge_vectors,
                                            take_rows)
 from repro_torch.models.gnn.irreps import edge_wigner, irrep_slices
 from repro_torch.models.gnn.nequip import embed_scalars, gate, per_l_mix
+from repro_torch.models.sharding import shard_hint
 from repro_torch.train import optimizer as opt
 from repro_torch.train.step import make_train_step as _train_step
 
@@ -117,6 +118,8 @@ def _spec(cfg: EquiformerV2Config) -> dict:
 
 
 class EquiformerV2(ParamTree):
+    STACKED = ("layers",)
+
     def __init__(self, cfg: EquiformerV2Config, device):
         super().__init__(_spec(cfg), device)
 
@@ -227,6 +230,7 @@ def _layer(x, lp, cfg, slices, src, dst, m, Dk, rbf, env, so2):
     # rotate into the edge frame (only the components the SO(2) mixing
     # keeps: those with |m| > m_max are dropped there), mix, scale by l
     fe = Dk @ take_rows(xn, src).transpose(1, 2)           # [E, K, C]
+    fe = shard_hint(fe, "edge_msg")
     me = _so2_conv(fe, lp, blocks) * torch.index_select(rad, 1, l_of)[
         ..., None]
     logits = me[:, 0] @ lp.alpha.to(cfg.dtype)             # [E, H] (l=m=0)

@@ -17,6 +17,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.gnn.common import (ParamTree, masked_nll, safe_edges,
                                            segment_softmax, segment_sum,
                                            take_rows)
+from repro_torch.models.sharding import shard_hint
 from repro_torch.train.step import make_train_step as _train_step
 
 
@@ -85,12 +86,14 @@ def forward(model: GAT, batch: dict, cfg: GATConfig) -> torch.Tensor:
     for i, lp in enumerate(model.layers):
         last = i == cfg.n_layers - 1
         h = torch.einsum("nf,fhd->nhd", x, lp.w.to(cfg.dtype))
+        h = shard_hint(h, "node_hidden")
         s_src = torch.einsum("nhd,hd->nh", h, lp.a_src.to(cfg.dtype))
         s_dst = torch.einsum("nhd,hd->nh", h, lp.a_dst.to(cfg.dtype))
         e = F.leaky_relu(take_rows(s_src, src) + take_rows(s_dst, dst),
                          cfg.negative_slope)               # [E, H] (SDDMM)
         alpha = segment_softmax(e, dst, N, mask=m[:, None])
         msg = alpha[..., None] * take_rows(h, src)          # [E, H, D]
+        msg = shard_hint(msg, "edge_msg")
         out = segment_sum(msg, dst, N)
         x = out.mean(dim=1) if last else F.elu(out.reshape(N, -1))
     return x

@@ -29,6 +29,7 @@ from repro_torch.models.gnn.common import (ParamTree, bessel_rbf,
                                            segment_sum, take_rows)
 from repro_torch.models.gnn.irreps import (cg_tensor, irrep_slices,
                                            real_sph_harm)
+from repro_torch.models.sharding import shard_hint
 from repro_torch.train.step import make_train_step as _train_step
 
 
@@ -177,6 +178,7 @@ def forward(model: NequIP, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
         rad = rad.reshape(-1, len(paths), C) * env[..., None]  # [E, P, C]
         h = per_l_mix(x, lp.mix_pre, slices)
         hs = take_rows(h, src)                                 # [E, C, dim]
+        hs = shard_hint(hs, "edge_msg")
         # every path's CG(f^{l1}, Y^{l2}) as one output column block
         t = torch.cat([torch.einsum("eci,eki->eck", hs[..., slices[l1]], cy)
                        for l1, cy in enumerate(CY)], dim=-1)

@@ -19,6 +19,7 @@ from repro_torch.models.gnn.common import (ParamTree, edge_vectors,
                                            graph_readout, masked_nll,
                                            poly_cutoff, safe_edges,
                                            segment_sum, take_rows)
+from repro_torch.models.sharding import shard_hint
 from repro_torch.train.step import make_train_step as _train_step
 
 
@@ -94,6 +95,7 @@ def forward(model: SchNet, batch: dict, cfg: SchNetConfig) -> torch.Tensor:
         w = w * env                                            # [E, D]
         h = x @ lp.in_w
         msg = take_rows(h, src) * w                            # cfconv
+        msg = shard_hint(msg, "edge_msg")
         agg = segment_sum(msg, dst, N)
         v = ssp(agg @ lp.out1 + lp.out1_b) @ lp.out2 + lp.out2_b
         x = x + v

@@ -33,6 +33,7 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bag as bag_sum
 from repro_torch.kernels.embedding_bag.ops import \
     embedding_bag_backward as bag_grad
 from repro_torch.models.common import dense_init, dense_init_, resolve_device
+from repro_torch.models.sharding import shard_hint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +120,15 @@ class WideDeep(nn.Module):
         self.user_proj = _param((prev, cfg.item_dim), dt, device)
         self.register_buffer("offsets", torch.as_tensor(
             cfg.field_offsets(), device=device), persistent=False)
+
+    def reference_tree(self) -> dict:
+        """The parameters in the reference's tree (``mlp`` a list of
+        ``{"w", "b"}``)."""
+        return {"table": self.table, "wide": self.wide,
+                "wide_b": self.wide_b,
+                "mlp": [{"w": layer.w, "b": layer.b} for layer in self.mlp],
+                "out_w": self.out_w, "items": self.items,
+                "user_proj": self.user_proj}
 
 
 @torch.no_grad()
@@ -248,8 +258,11 @@ def deep_tower(model: WideDeep, batch: dict,
     x = MLPInput.apply(model.table,
                        table_ids(batch["sparse_ids"], model.offsets),
                        batch["dense"].to(cfg.dtype), mlp_input_width(cfg))
+    # the bags are the buffer's first columns (the reference's [B, F, dim])
+    shard_hint(x[:, :cfg.n_sparse * cfg.embed_dim], "bag_emb")
     for layer in model.mlp:
         x = torch.relu(x @ layer.w + layer.b)
+        x = shard_hint(x, "mlp_hidden")
     return x                                            # [B, mlp[-1]]
 
 
@@ -268,6 +281,7 @@ def retrieval_scores(model: WideDeep, batch: dict,
     user = deep_tower(model, batch, cfg) @ model.user_proj   # [1, item_dim]
     cand = model.items.index_select(
         0, batch["candidate_ids"].to(torch.int64))      # [n_cand, item_dim]
+    cand = shard_hint(cand, "cand_emb")
     return cand @ user[0]
 
 

@@ -42,6 +42,7 @@ from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.models.common import (apply_rope, cross_entropy,
                                        dense_init, resolve_device, rms_norm,
                                        rope_angles, softcap)
+from repro_torch.models.sharding import shard_hint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,11 +332,13 @@ def attention(x, ap: Attention, cfg: TransformerConfig, positions, is_local,
         q = q + ap.bq.to(dt)
         k = k + ap.bk.to(dt)
         v = v + ap.bv.to(dt)
+    q = shard_hint(q.reshape(B, S, Kh, G, hd), "act_q")
+    k = shard_hint(k.reshape(B, S, Kh, hd), "act_kv")
+    v = shard_hint(v.reshape(B, S, Kh, hd), "act_kv")
     sin, cos = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q.reshape(B, S, Kh * G, hd), sin, cos).reshape(
         B, S, Kh, G, hd)
-    k = apply_rope(k.reshape(B, S, Kh, hd), sin, cos)
-    v = v.reshape(B, S, Kh, hd)
+    k = apply_rope(k, sin, cos)
     window = cfg.window if is_local else None
 
     if kv_cache is None:
@@ -377,6 +380,7 @@ def attention(x, ap: Attention, cfg: TransformerConfig, positions, is_local,
 def dense_mlp(x, mp: MLP, cfg: TransformerConfig):
     dt = cfg.dtype
     h = F.silu(x @ mp.w1.to(dt)) * (x @ mp.w3.to(dt))
+    h = shard_hint(h, "act_ff")
     return h @ mp.w2.to(dt)
 
 
@@ -423,13 +427,17 @@ def moe_mlp(x, mp: MLP, cfg: TransformerConfig):
     # sorts the indices, and every empty slot points at token 0
     buf = (xf.index_select(0, slot_token).to(dt)
            * slot_valid[:, None]).reshape(E, C, D)
+    buf = shard_hint(buf, "moe_buf")
     w1, w3, w2 = mp.w1.to(dt), mp.w3.to(dt), mp.w2.to(dt)
     h = F.silu(grouped_matmul(buf, w1)) * grouped_matmul(buf, w3)
+    h = shard_hint(h, "moe_ff")
     eout = grouped_matmul(h, w2).reshape(E * C, D)
     eout = eout * slot_w.to(dt)[:, None]
+    eout = shard_hint(eout, "moe_eout")
 
     out = torch.zeros((T, D), dtype=dt, device=dev).index_add_(
         0, slot_token, eout * slot_valid[:, None])
+    out = shard_hint(out, "moe_rows")
     return out.reshape(B, S, D), aux
 
 
@@ -453,7 +461,7 @@ def _layer(x, layer: Layer, cfg: TransformerConfig, positions, is_local,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_norms:
         f = rms_norm(f, layer.ln2_post.float(), zero_centered=zc)
-    return x + f, aux
+    return shard_hint(x + f, "act_resid"), aux
 
 
 def forward(params: Transformer, tokens: torch.Tensor,
@@ -470,6 +478,7 @@ def forward(params: Transformer, tokens: torch.Tensor,
     if cfg.name.startswith("gemma"):
         # the reference rounds the scale to the compute dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    x = shard_hint(x, "act_resid")
     steps = torch.arange(S, device=dev)[None]
     if cache_index is None:
         positions = steps.expand(B, S)
@@ -495,6 +504,7 @@ def forward(params: Transformer, tokens: torch.Tensor,
     x = rms_norm(x, params.final_norm.float(),
                  zero_centered=cfg.zero_centered_norm)
     logits = softcap(x @ params.head.to(dt), cfg.final_softcap)
+    logits = shard_hint(logits, "logits")
     return logits, kv_caches, torch.stack(auxs).mean()
 
 
@@ -510,6 +520,16 @@ def loss_fn(model: Transformer, batch: dict, cfg: TransformerConfig):
     return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}
 
 
+def train_refusal(cfg: TransformerConfig) -> str | None:
+    """Why ``make_train_step`` refuses ``cfg``, or None: the port trains
+    float32 configs only."""
+    if cfg.dtype == torch.float32:
+        return None
+    return (f"{cfg.name} computes in {cfg.dtype}; the port trains float32 "
+            "configs only (it keeps a bf16 config's matmul weights in bf16, "
+            "where the reference trains fp32 master copies)")
+
+
 def make_train_step(cfg: TransformerConfig, adam_cfg):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: ``repro_torch.train.step``'s step over ``loss_fn``, one
@@ -517,12 +537,9 @@ def make_train_step(cfg: TransformerConfig, adam_cfg):
     only."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step as train_step
-    if cfg.dtype != torch.float32:
-        raise ValueError(
-            f"make_train_step: {cfg.name} computes in {cfg.dtype}; the port "
-            "trains float32 configs only (it keeps a bf16 config's matmul "
-            "weights in bf16, where the reference trains fp32 master "
-            "copies)")
+    refusal = train_refusal(cfg)
+    if refusal:
+        raise ValueError(f"make_train_step: {refusal}")
     return train_step(loss_fn, cfg, adam_cfg, groups=opt.stacked_leaves)
 
 

@@ -36,7 +36,9 @@ def state_tree(state):
     """The reference's tree of ``state``: a model (anything with
     ``reference_tree()``) as that tree; ``(model, AdamState)`` as
     ``(tree, AdamState(step, mu, nu, ef_error))`` with each list (in
-    ``model.parameters()`` order) arranged in the model's tree."""
+    ``model.parameters()`` order) arranged in the model's tree; a dict or
+    tuple as given (a tree in the reference's format already, e.g.
+    ``train/elastic.py``'s placed leaves)."""
     if isinstance(state, nn.Module):
         return state.reference_tree()
     if (isinstance(state, tuple) and len(state) == 2
@@ -52,6 +54,8 @@ def state_tree(state):
             def like(node):
                 if isinstance(node, dict):
                     return {k: like(v) for k, v in node.items()}
+                if _subtrees(node):
+                    return [like(v) for v in node]
                 if isinstance(node, list):
                     return [by_id[id(p)] for p in node]
                 return by_id[id(node)]
@@ -60,17 +64,26 @@ def state_tree(state):
         return (tree, AdamState(opt_state.step, arrange(opt_state.mu),
                                 arrange(opt_state.nu),
                                 arrange(opt_state.ef_error)))
-    raise TypeError(f"a checkpoint holds a model or (model, AdamState), "
-                    f"not {type(state).__name__}")
+    if isinstance(state, (dict, tuple)):
+        return state        # already the reference's tree
+    raise TypeError(f"a checkpoint holds a model, (model, AdamState) or "
+                    f"the reference's tree, not {type(state).__name__}")
+
+
+def _subtrees(node) -> bool:
+    """A list of sub-trees (a model's list of layers the reference does
+    not stack), not the per-layer tensors of one stacked leaf."""
+    return isinstance(node, list) and bool(node) and isinstance(node[0],
+                                                                dict)
 
 
 def flatten(tree) -> list:
     """Leaves in ``jax.tree.flatten``'s order: dict keys sorted, tuples
-    (NamedTuples too) in order; a list is one leaf (the per-layer tensors
-    of a stacked leaf)."""
+    (NamedTuples too) and lists of sub-trees in order; a list of tensors
+    is one leaf (the per-layer tensors of a stacked leaf)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
-    if isinstance(tree, tuple):
+    if isinstance(tree, tuple) or _subtrees(tree):
         return [leaf for node in tree for leaf in flatten(node)]
     return [tree]
 
@@ -84,6 +97,8 @@ def _host(leaf) -> np.ndarray:
             return _host(leaf[0])
         return np.stack([_host(t) for t in leaf])
     t = leaf.detach()
+    if hasattr(t, "full_tensor"):       # a DTensor: gathered on every rank
+        t = t.full_tensor()
     dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
     return t.to("cpu", dt, copy=True).numpy()
 

@@ -241,7 +241,55 @@ def _stall(world: int) -> None:
         time.sleep(3600)
 
 
+# ------------------------------------------------------------------- elastic
+
+# the tiny LM of tests/test_train_substrate.py, trained in float32
+ELASTIC_CFG = dict(name="tiny", n_layers=2, d_model=32, n_heads=4,
+                   n_kv_heads=2, d_ff=64, vocab_size=61, block_q=8,
+                   block_kv=8)
+WORKDIR = None          # this world's directory; the test's is its parent
+
+
+def _elastic(src: str, dst: str | None) -> dict:
+    """Restore the newest checkpoint under ``src`` into a fresh state of
+    the tiny LM and place it on this world's ``(world, 1)`` host mesh with
+    the LM bundle's training shardings (``elastic_restart``); with ``dst``
+    save the placed (DTensor) state there (every rank gathers, rank 0
+    writes).  Returns the step, each leaf's local shape and its gathered
+    values."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import tree_leaves
+    from repro_torch.configs.lm_common import LMBundle
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.elastic import elastic_restart
+    cfg = tfm.TransformerConfig(**ELASTIC_CFG, dtype=torch.float32)
+    model = tfm.init_params(cfg, torch.Generator().manual_seed(99),
+                            device="cpu")
+    like = (model, opt.init(opt.AdamWConfig(), model.parameters()))
+    bundle = LMBundle(cfg)
+    root = Path(WORKDIR).parent
+    step, placed = elastic_restart(
+        CheckpointManager(str(root / src), async_write=False), like,
+        make_host_mesh("cpu"),
+        lambda mesh: bundle.shardings(mesh, "train_4k")[0][:2])
+    leaves = tree_leaves(placed)
+    out = {"step": step,
+           "local_shapes": [tuple(d.to_local().shape) for d in leaves],
+           "values": [d.full_tensor().numpy() for d in leaves]}
+    if dst is not None:
+        rank = dist.get_rank()
+        where = root / (dst if rank == 0 else f"{dst}_rank{rank}")
+        CheckpointManager(str(where), async_write=False).save(step, placed)
+    return out
+
+
 TASKS = {
+    "elastic_save": lambda world: _elastic("ref_ckpt", "ckpt_on_4"),
+    "elastic_restore": lambda world: _elastic("ckpt_on_4", None),
     "appendix": _appendix,
     "delta": lambda world: {
         "overlay": overlay_parity(sharded_cpu),
@@ -252,6 +300,8 @@ TASKS = {
 
 
 def _rank_main(rank: int, world: int, tmp: str, tasks: tuple) -> None:
+    global WORKDIR
+    WORKDIR = tmp
     out = Path(tmp) / f"rank{rank}.pkl"
     try:
         import torch

@@ -117,6 +117,21 @@ def test_keys_past_kv_len_are_never_read():
                                base, rtol=0, atol=0)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor (no storage) that claims a device the port has no kernel
+    for: ``meta`` is the dry run's device now (``launch/dryrun.py``), where
+    the wrappers return empty outputs."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} has no data here")
+
+
 def test_rejects_what_it_cannot_take():
     q = torch.zeros(1, 4, 2, 1, 16)
     kv = torch.zeros(1, 4, 2, 16)
@@ -127,7 +142,9 @@ def test_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, kv, kv, 0, 4, window=0)
     with pytest.raises(ValueError, match="no kernel for device"):
-        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"), 0, 4)
+        flash_attention(_Elsewhere(q), _Elsewhere(kv), _Elsewhere(kv), 0, 4)
+    out = flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"), 0, 4)
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 def _misaligned(shape, dtype):

@@ -39,6 +39,21 @@ def test_matches_pallas_kernel(G, M, K, N, dtype):
                                atol=tol)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor (no storage) that claims a device the port has no kernel
+    for: ``meta`` is the dry run's device now (``launch/dryrun.py``), where
+    the wrappers return empty outputs."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} has no data here")
+
+
 def test_rejects_what_it_cannot_take():
     x, w = torch.zeros(2, 3, 4), torch.zeros(2, 4, 5)
     with pytest.raises(ValueError, match="does not fit"):
@@ -48,7 +63,9 @@ def test_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="3-D"):
         grouped_matmul(x[0], w[0])
     with pytest.raises(ValueError, match="no kernel for device"):
-        grouped_matmul(x.to("meta"), w.to("meta"))
+        grouped_matmul(_Elsewhere(x), _Elsewhere(w))
+    out = grouped_matmul(x.to("meta"), w.to("meta"))
+    assert out.device.type == "meta" and out.shape == (2, 3, 5)
 
 
 def _operands(G, M, K, N, dtype, x_shift=0, w_shift=0):
