@@ -118,12 +118,13 @@ Phases, each printing one JSON line:
 17. archs  — the ten architectures through ``get_bundle(arch,
              smoke=True)`` on cuda, every shape that runs:
              ``make_concrete(device="cuda")`` then ``make_step``; every
-             floating output finite; K2 launched on every LM shape, K3 on
-             the MoE ones, K4 on Wide & Deep's (counted per shape); the
-             same step on a CPU copy of the inputs held to the card's at
-             the model tolerances (each LM bundle again in float32, where
-             its ``train_4k`` runs: in bf16 a router near-tie may send a
-             token to another expert on either device);
+             floating output finite; K2 launched on every LM shape (its
+             backward too in a train step: the bf16 ``train_4k`` trains
+             fp32 masters), K3 on the MoE ones, K4 on Wide & Deep's
+             (counted per shape); the same step on a CPU copy of the
+             inputs held to the card's at the model tolerances (each LM
+             bundle again in float32: in bf16 a router near-tie may send
+             a token to another expert on either device);
 18. long_context — OLMoE-1B-7B at ``CONFIG`` (random bf16 weights from a
              seeded generator) through ``get_bundle`` and ``make_step``:
              ``prefill_32k`` at batch 1 (cut from 32) and 32,768 prompt
@@ -146,13 +147,40 @@ Phases, each printing one JSON line:
 20. dryrun — ``launch/dryrun.py``'s ``run_cell`` for every architecture x
              shape x the 16x16 and 2x16x16 meshes: every cell OK or
              SKIPPED, the skipped ones exactly the reference's four
-             ``long_500k`` and the five bf16 ``train_4k``; then the two
+             ``long_500k`` (the five bf16 ``train_4k`` run on fp32
+             masters); then the two
              long-context cells at their cut batch on a (1, 1) mesh: the
              predicted argument bytes equal to the bytes of the tensors
              phase 18 passed, the predicted temporaries beside the step's
              measured peak less what was allocated before it, the
              measured ms beside max(t_compute, t_memory);
-21. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
+21. lm_train_bf16 — mixed-precision training: OLMoE-1B-7B's ``train_4k``
+             through ``get_bundle`` at the published widths (d_model 2,048,
+             16 heads of 128, 64 experts top-8, d_ff 1,024, vocab 50,304),
+             cut to 6 layers (from 16) and batch 2 (from 256) at the cell's
+             4,096 tokens: fp32 masters (random, from a seeded generator)
+             cast to bf16 at each use, the bundle's ``adam_cfg()``, tokens
+             from ``train/data.py``; one warm-up step, 5 steps timed with
+             CUDA events, one profiled step.  Gates: every loss and
+             gradient norm finite; every master fp32 and moved by a step;
+             peak memory at most 60e9 bytes; exactly 2L K2 launches a step
+             on ``tc`` (the forward and the checkpointed layer's
+             recompute), L K2 backward launches on ``recompute`` and 12L K3
+             launches on ``tc``; the cut cell's dry run on a (1, 1) mesh
+             predicting exactly the bytes the step was passed (once its
+             one residual scalar a port tensor is counted, as the dry run
+             counts it, one a reference leaf);
+22. kernel — on layer 0's calls captured in the warm-up step: K2's ``tc``
+             forward (``[2, 4096, 16, 1, 128]``) against its plain version
+             (2e-2), as ``kernel`` above, then its bf16 backward (the
+             output gradient at unit RMS) against autograd through the
+             plain version over all 4,096 rows (2e-2), as
+             ``attention_bwd`` below, beside SDPA's bf16 backward and its
+             operations bound; then for the w1 and w2 products K3's
+             ``tc`` forward (3e-2) and its backward on ``tc`` (3e-2), each
+             product timed, the transposed copy that ``tc`` needs apart
+             from the launch, beside ``torch.bmm``;
+23. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
              13.7 GB embedding table; random fp32 weights from a seeded
              generator on the card) serving the reference's three shapes:
              ``serve_p99`` (batch 512) 50 times, ``serve_bulk`` (batch
@@ -164,7 +192,7 @@ Phases, each printing one JSON line:
              on the host and copied to the card outside the timed window
              (``recsys_copy``); then one more forward of each shape under
              ``torch.profiler`` (no ``torch.cat`` kernel may appear);
-22. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
+24. kernel — the embedding-bag kernel on the captured ``serve_p99`` and
              ``serve_bulk`` lookups, and on ``serve_bulk`` written through
              ``out`` into a buffer of the deep tower's padded shape (the
              padding columns untouched), against its plain version (1e-4,
@@ -173,9 +201,9 @@ Phases, each printing one JSON line:
              call, with one ``torch.nn.functional.embedding_bag`` call as
              the yardstick; then ``serve_p99`` on the ``warp`` route,
              through a view of the same table one element past its base;
-23. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
+25. check  — Wide & Deep ``SMOKE`` in float32: serve and retrieval give the
              same outputs on ``device="cuda"`` and ``device="cpu"``;
-24. recsys_train — Wide & Deep at its full ``CONFIG`` trained on the card
+26. recsys_train — Wide & Deep at its full ``CONFIG`` trained on the card
              (the serving model freed first; random fp32 weights from a
              seeded generator, the reference's ``adam_cfg()``) at
              ``train_batch`` (65,536 examples from two seeded host
@@ -189,17 +217,17 @@ Phases, each printing one JSON line:
              layer and every table row the batches name move; ``items``,
              ``user_proj`` and the table rows no batch names keep their
              bits (digests);
-25. kernel — K4's backward on the call captured in the warm-up step (the
+27. kernel — K4's backward on the call captured in the warm-up step (the
              deep tower's input gradient, 40 bags a row of row stride
              1,293, scaled to unit RMS) against its plain version (1e-4),
              bit-equal over two calls, timed beside one ``index_add_``
              into a zeroed table gradient and its bytes bound, with the
              split into the zero fill, the sort and the two kernels;
-26. check  — Wide & Deep ``SMOKE`` training step 0 on cuda and on cpu from
+28. check  — Wide & Deep ``SMOKE`` training step 0 on cuda and on cpu from
              the same weights: loss, gradient norm and the table's
              gradient at the recsys tolerance; the AdamW update in pieces
              and of whole tensors on the card, bit-equal;
-27. gnn    — the GNN family training on the card in float32 with TF32
+29. gnn    — the GNN family training on the card in float32 with TF32
              off, each architecture through its full-size bundle (the
              published widths; random weights from a seeded generator on
              the card) and the reference's AdamW: GAT, SchNet, NequIP and
@@ -213,7 +241,7 @@ Phases, each printing one JSON line:
              moving the weights, the molecule losses equal to the port's
              on the CPU, one profiled molecule step each; then a summary
              with the runs the card does not take (``reduced``);
-28. lm_train — LM training through ``repro_torch.launch.train.train`` in
+30. lm_train — LM training through ``repro_torch.launch.train.train`` in
              float32 with TF32 off, into a temporary checkpoint directory:
              ``lm100m`` (12 layers, d_model 768, vocab 32,768) at batch 8 x
              seq 1,024 for 20 steps (checkpoints at 10 and 20), then
@@ -237,7 +265,7 @@ Phases, each printing one JSON line:
              all on ``simt``.  Then 5 steps timed with CUDA events, peak
              memory, TFLOP/s of ``train_flops``, one profiled step, and the
              checkpoint's save and restore seconds;
-29. kernel — K2's forward on its ``rows`` route at the training shape
+31. kernel — K2's forward on its ``rows`` route at the training shape
              (``lm100m`` layer 0, fp32), beside SDPA with an explicit mask
              and with ``is_causal``, at most 0.55 ms (every ``rows``
              phase also holds its log-sum-exp to the plain version's at
@@ -256,7 +284,7 @@ Phases, each printing one JSON line:
              operands cast to bf16 (the forward on ``tc``, the backward
              recomputing), held at 2e-2; then K2's ``rows`` forward at
              ``lm-moe``'s layer 0 (head_dim 32);
-30. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
+32. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
              w2 products captured the same way (``dy`` at unit RMS): both
              gradients against autograd through the plain version (1e-4),
              dw bit-equal over two calls, and the three products as the
@@ -272,6 +300,7 @@ last line, as does a run with no CUDA device or without the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -387,15 +416,21 @@ LONG_CHECK_ROWS = 1_024
 LONG_TICK_BOUND = 2.0
 LONG_PEAK_BYTES = 60e9
 # every dry-run cell OK or SKIPPED, these skipped and no other: the
-# reference's four long_500k and the five bf16 train_4k
+# reference's four long_500k
 DRYRUN_SKIPS = {("olmoe-1b-7b", "long_500k"),
                 ("moonshot-v1-16b-a3b", "long_500k"),
                 ("qwen2.5-32b", "long_500k"),
-                ("phi3-medium-14b", "long_500k"),
-                ("olmoe-1b-7b", "train_4k"),
-                ("moonshot-v1-16b-a3b", "train_4k"),
-                ("qwen2.5-32b", "train_4k"), ("phi3-medium-14b", "train_4k"),
-                ("gemma2-27b", "train_4k")}
+                ("phi3-medium-14b", "long_500k")}
+# mixed-precision LM training: OLMoE at its published widths through
+# get_bundle's train_4k (bf16 compute on fp32 masters), cut in depth and
+# batch; timed steps after one warm-up; the peak device memory allowed
+# (6 layers hold 2.72e9 weights: 43.6 GB of masters, gradients and
+# moments, ~8 GB of activations, logits, MoE buffers and the update's
+# pieces)
+BF16_TRAIN_LAYERS = 6
+BF16_TRAIN_BATCH = 2
+BF16_TRAIN_STEPS = 5
+BF16_TRAIN_PEAK_BYTES = 60e9
 # the update stream at sf=100: a round's writes (edge inserts, deletes of
 # base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
 # only), its reads, the chunks they interleave in, the reads a round held
@@ -2423,8 +2458,8 @@ def archs_path() -> dict:
     1e-4, Wide & Deep 1e-4 / 1e-5).  An LM smoke config computes in bf16,
     where a near-tie in the router may send a token to another expert on
     either device (a jump no tolerance bounds): it runs as it is for the
-    gates, and again in float32 (its ``train_4k`` then runs too) for the
-    cuda-vs-cpu check."""
+    gates (its ``train_4k`` on fp32 masters, K2's backward launched too),
+    and again in float32 for the cuda-vs-cpu check."""
     import dataclasses
     import torch
     from repro_torch import kernels
@@ -2463,6 +2498,9 @@ def archs_path() -> dict:
                 if b.family == "lm":
                     require(n.get("flash_attention", 0) >= 1,
                             f"{label}: no flash_attention launch")
+                    if spec.kind == "train":
+                        require(n.get("flash_attention_bwd", 0) >= 1,
+                                f"{label}: no flash_attention_bwd launch")
                     if b.cfg.moe:
                         require(n.get("grouped_matmul", 0) >= 1,
                                 f"{label}: no grouped_matmul launch")
@@ -2844,6 +2882,253 @@ def dryrun_path(long: dict) -> dict:
             "flops": roof["flops"], "bytes": roof["bytes"],
             "run_s": r["run_s"]}
     return rec
+
+
+# --------------------------------------------------- mixed-precision LM
+
+@contextlib.contextmanager
+def layer0_captured(captured: dict):
+    """Within it, the first K2 call and the first w1 and w2 expert products
+    that take part in autograd (layer 0's forward: ``moe_mlp`` calls w1,
+    w3 and w2 in this order, and a checkpointed layer's recompute comes
+    later) are copied into ``captured`` under ``attention`` (q, k, v,
+    q_start, kv_len, options), ``w1`` and ``w2`` (x, w), and a hook
+    appends each call's output gradient when the backward reaches it."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    real_fa, real_gmm = tfm.flash_attention, tfm.grouped_matmul
+    order = ["w1", "w3", "w2"]
+
+    def keep_grad(key, out):
+        out.register_hook(lambda g: captured[key].append(
+            g.detach().clone(memory_format=torch.contiguous_format)))
+
+    def fa(q, k, v, q_start, kv_len, **kw):
+        out = real_fa(q, k, v, q_start, kv_len, **kw)
+        if "attention" not in captured and out.requires_grad:
+            captured["attention"] = [t.detach().clone() for t in (q, k, v)] \
+                + [q_start, kv_len, kw]
+            keep_grad("attention", out)
+        return out
+
+    def gmm(x, w):
+        out = real_gmm(x, w)
+        if order and out.requires_grad:
+            which = order.pop(0)
+            if which != "w3":
+                captured[which] = [x.detach().clone(), w.detach().clone()]
+                keep_grad(which, out)
+        return out
+
+    tfm.flash_attention, tfm.grouped_matmul = fa, gmm
+    try:
+        yield captured
+    finally:
+        tfm.flash_attention, tfm.grouped_matmul = real_fa, real_gmm
+
+
+def _train_arg_bytes(model, ost, batch) -> dict:
+    """The bytes a train step is passed (every parameter, both moments, the
+    step counter, the compression residuals and the batch), and the two
+    terms by which the dry run's count differs by convention: it counts
+    one compression residual scalar a leaf of the reference's tree, where
+    the port keeps one a tensor (zeros while compression is off)."""
+    from repro_torch.configs.base import reference_specs, tree_leaves
+    require(all(e.dim() == 0 for e in ost.ef_error),
+            "a train step with compression on")
+    leaves = len(tree_leaves(reference_specs((model,))[0]))
+    esize = ost.ef_error[0].element_size()
+    tensors = [*model.parameters(), *ost.mu, *ost.nu, ost.step,
+               *ost.ef_error, *batch.values()]
+    return {"passed": sum(t.numel() * t.element_size() for t in tensors),
+            "port_residual_bytes": len(ost.ef_error) * esize,
+            "reference_residual_bytes": leaves * esize}
+
+
+def _sample(t, n: int = 1 << 16):
+    """A strided sample of ``t``'s elements (a copy), to tell whether a
+    step moved it without copying the whole tensor."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // n)].clone()
+
+
+def lm_train_bf16_path() -> tuple[dict, dict]:
+    """OLMoE-1B-7B's ``train_4k`` through ``get_bundle``: bf16 compute on
+    fp32 masters at the published widths, cut to ``BF16_TRAIN_LAYERS``
+    layers and ``BF16_TRAIN_BATCH`` sequences of the cell's 4,096 tokens.
+    Random masters from a seeded generator, the bundle's ``adam_cfg()``,
+    tokens from ``train/data.py``.  One warm-up step that captures layer
+    0's K2 call and K3's w1 and w2 products with their output gradients,
+    ``BF16_TRAIN_STEPS`` steps timed with CUDA events, one profiled step,
+    and the cut cell's dry run on a (1, 1) mesh.  Returns the record and
+    the captured calls."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, batch_at
+    bundle = get_bundle("olmoe-1b-7b")
+    full, spec = bundle.cfg, bundle.shapes["train_4k"]
+    require(full.dtype == torch.bfloat16 and spec.skip is None,
+            f"olmoe-1b-7b train_4k: {full.dtype}, skip {spec.skip}")
+    S, B, L = spec.dims["seq_len"], BF16_TRAIN_BATCH, BF16_TRAIN_LAYERS
+    bundle.cfg = cfg = dataclasses.replace(full, n_layers=L)
+    bundle.shapes["train_4k"] = dataclasses.replace(
+        spec, dims={**spec.dims, "global_batch": B})
+    per_step = lm_launches_per_step(cfg)
+    rec = {"phase": "lm_train_bf16", "model": cfg.name,
+           "dtype": str(cfg.dtype), "layers": L, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": cfg.hd,
+           "experts": cfg.n_experts, "top_k": cfg.top_k, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "batch": B, "seq": S, "tokens_per_step": B * S,
+           "reduced": [f"n_layers {full.n_layers} -> {L}",
+                       f"global_batch {spec.dims['global_batch']} -> {B}"],
+           "launches_per_step": per_step}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", master=True)
+    acfg = bundle.adam_cfg()
+    ost = opt.init(acfg, model.parameters())
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    masters = {n: str(p.dtype) for n, p in model.named_parameters()
+               if p.dtype != torch.float32}
+    require(not masters, f"lm_train_bf16: non-fp32 masters {masters}")
+    step = bundle.make_step("train_4k")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+
+    def on_card(i):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in batch_at(dcfg, i).items()}
+
+    state = {"ost": ost}
+    del ost
+
+    def timed(batch):
+        """One step timed with CUDA events; its launches exactly
+        ``per_step``."""
+        was = dict(kernels.LAUNCHES)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, state["ost"], m = step(model, state["ost"], batch)
+        e.record()
+        e.synchronize()
+        got = {k: n - was.get(k, 0) for k, n in kernels.LAUNCHES.items()
+               if n != was.get(k, 0)}
+        require(got == {k: n for k, n in per_step.items() if n},
+                f"lm_train_bf16: launches {got}, expected {per_step}")
+        require(bool(torch.isfinite(m["loss"]))
+                and bool(torch.isfinite(m["grad_norm"])),
+                f"lm_train_bf16: loss {float(m['loss'])}, grad norm "
+                f"{float(m['grad_norm'])}")
+        return a.elapsed_time(e), float(m["loss"]), float(m["grad_norm"])
+
+    kernels.reset_launches()
+    before = {n: _sample(p) for n, p in model.named_parameters()}
+    with layer0_captured({}) as captured:
+        warm_ms, loss0, norm0 = timed(on_card(0))
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(_sample(p), before[n])]
+    require(not still, f"lm_train_bf16: masters unmoved by a step: {still}")
+    del before
+    require(sorted(captured) == ["attention", "w1", "w2"]
+            and len(captured["attention"]) == 7
+            and all(len(captured[w]) == 3 for w in ("w1", "w2")),
+            f"lm_train_bf16: captured {sorted(captured)}")
+    runs = [timed(on_card(i)) for i in range(1, 1 + BF16_TRAIN_STEPS)]
+    times = [r[0] for r in runs]
+    med = statistics.median(times)
+    flops = cfg.train_flops(B, S)
+    rec.update({
+        "warmup_ms": warm_ms, "step_ms": times, "step_ms_median": med,
+        "tokens_per_s": B * S / (med / 1e3), "train_flops": flops,
+        "tflops_per_s": flops / (med * 1e-3) / 1e12,
+        "loss": [loss0] + [r[1] for r in runs],
+        "grad_norm": [norm0] + [r[2] for r in runs],
+        "masters": "every parameter fp32, every one moved by step 0"})
+    rec["profiled"] = profile_step(step, model, state["ost"], on_card(99))
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["max_memory_allocated"] = peak = torch.cuda.max_memory_allocated()
+    require(peak <= BF16_TRAIN_PEAK_BYTES,
+            f"lm_train_bf16: peak {peak} bytes > {BF16_TRAIN_PEAK_BYTES}")
+
+    # the cut cell's dry run beside the card
+    args = _train_arg_bytes(model, state["ost"], on_card(0))
+    r = run_cell("olmoe-1b-7b", "train_4k", bundle=bundle,
+                 mesh=AbstractMesh((1, 1), ("data", "model")))
+    require(r["status"] == "OK", f"dryrun train_4k at the cut size: "
+                                 f"{r.get('error')}")
+    b = r["bytes_per_device"]
+    # the residual scalars counted a reference leaf, not a port tensor
+    adjusted = (args["passed"] - args["port_residual_bytes"]
+                + args["reference_residual_bytes"])
+    require(b["arguments"] == adjusted,
+            f"dryrun train_4k: predicted arguments {b['arguments']}, the "
+            f"tensors passed hold {args['passed']} bytes ({adjusted} with "
+            f"the reference's residual scalars)")
+    roof = r["roofline"]
+    bound_ms = 1e3 * max(roof["t_compute_s"], roof["t_memory_s"])
+    rec["dryrun"] = {
+        "arguments": b["arguments"], "arguments_passed": args["passed"],
+        "port_residual_scalar_bytes": args["port_residual_bytes"],
+        "reference_residual_scalar_bytes": args["reference_residual_bytes"],
+        "arguments_passed_adjusted": adjusted, "outputs": b["outputs"],
+        "temps_predicted": b["temps"], "temps_method": b["temps_method"],
+        "peak_measured": peak, "measured_ms": med, "roofline_ms": bound_ms,
+        "t_compute_ms": 1e3 * roof["t_compute_s"],
+        "t_memory_ms": 1e3 * roof["t_memory_s"],
+        "dominant": roof["dominant"],
+        "measured_over_roofline": med / bound_ms,
+        "flops": roof["flops"], "bytes": roof["bytes"],
+        "run_s": r["run_s"]}
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, captured
+
+
+def lm_train_bf16_kernels(calls: dict) -> tuple[dict, dict, list, list]:
+    """K2 and K3 held against their plain versions on the calls
+    ``lm_train_bf16_path``'s warm-up step captured, each record emitted:
+    K2's ``tc`` forward and its bf16 backward on layer 0's attention, then
+    for w1 and w2 K3's ``tc`` forward and its dx and dw.  Empties
+    ``calls``."""
+    import torch
+    q, k, v, q_start, kv_len, kw, dout = calls.pop("attention")
+    starts, lens = (torch.full((q.shape[0],), n, dtype=torch.int32,
+                               device="cuda") for n in (q_start, kv_len))
+    fa = attention_phase("olmoe_layer0_bf16", q, k, v, starts, lens, kw,
+                         "tc", reps=10)
+    emit(fa)
+    del starts, lens
+    fa_bwd = attention_bwd_phase("olmoe_layer0_bf16", q, k, v, q_start,
+                                 kv_len, kw, dout, ATTENTION_TOL, reps=10)
+    emit(fa_bwd)
+    del q, k, v, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+    gmm, gmm_bwd = [], []
+    for w in ("w1", "w2"):
+        x, wt, dy = calls.pop(w)
+        gmm.append(gmm_phase(f"olmoe_layer0_{w}_bf16", x, wt, "tc", reps=10))
+        emit(gmm[-1])
+        gmm_bwd.append(gmm_bwd_phase(f"olmoe_layer0_{w}_bf16", x, wt, dy,
+                                     tol=GMM_TOL, reps=10))
+        emit(gmm_bwd[-1])
+        del x, wt, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fa, fa_bwd, gmm, gmm_bwd
 
 
 # ------------------------------------------------------------------ recsys
@@ -3659,17 +3944,25 @@ def gnn_path() -> dict:
 def lm_launches_per_step(cfg) -> dict:
     """Kernel launches one train step makes, from the code: K2's forward
     once a layer and once more in the layer's recompute (remat), its
-    backward once a layer, on the route that reads the forward's saved
-    output and log-sum-exp; K3's three expert products in the forward and
+    backward once a layer; K3's three expert products in the forward and
     the recompute, and two more launches (dx, dw) for each in the
-    backward."""
+    backward.  The routes follow the compute dtype: float32 runs K2's
+    forward on ``rows``, which keeps the log-sum-exp for the backward's
+    ``saved`` route, and K3 on ``simt``; bf16 (at head_dim 64 or 128 and
+    K3's widths in multiples of 8, as every full LM config) runs K2's
+    forward on ``tc``, which keeps none, so the backward takes its
+    ``recompute`` route, and K3 on ``tc``."""
+    import torch
+    fp32 = cfg.dtype == torch.float32
+    fa, bwd, gm = (("rows", "saved", "simt") if fp32
+                   else ("tc", "recompute", "tc"))
     fwd = 1 + int(cfg.remat)
     gmm = (3 * fwd + 6) * cfg.n_layers if cfg.moe else 0
     return {"flash_attention": fwd * cfg.n_layers,
-            "flash_attention.rows": fwd * cfg.n_layers,
+            f"flash_attention.{fa}": fwd * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers,
-            "flash_attention_bwd.saved": cfg.n_layers,
-            "grouped_matmul": gmm, "grouped_matmul.simt": gmm}
+            f"flash_attention_bwd.{bwd}": cfg.n_layers,
+            "grouped_matmul": gmm, f"grouped_matmul.{gm}": gmm}
 
 
 def lm_launch_gate(label: str, launches: dict, cfg, steps: int) -> None:
@@ -3754,37 +4047,9 @@ def lm_timed_steps(cfg, model, batch: int, seq: int) -> tuple[dict, dict]:
         return {k: torch.as_tensor(v, device="cuda")
                 for k, v in batch_at(dcfg, i).items()}
 
-    captured = {}
-    mlp0 = model.layers[0].mlp
-    real_fa, real_gmm = tfm.flash_attention, tfm.grouped_matmul
-
-    def keep_grad(key, out):
-        out.register_hook(lambda g: captured[key].append(
-            g.detach().clone(memory_format=torch.contiguous_format)))
-
-    def fa(q, k, v, q_start, kv_len, **kw):
-        out = real_fa(q, k, v, q_start, kv_len, **kw)
-        if "attention" not in captured and out.requires_grad:
-            captured["attention"] = [t.detach().clone() for t in (q, k, v)] \
-                + [q_start, kv_len, kw]
-            keep_grad("attention", out)
-        return out
-
-    def gmm(x, w):
-        out = real_gmm(x, w)
-        which = {mlp0.w1.data_ptr(): "w1",
-                 mlp0.w2.data_ptr(): "w2"}.get(w.data_ptr())
-        if which and which not in captured and out.requires_grad:
-            captured[which] = [x.detach().clone(), w.detach()]
-            keep_grad(which, out)
-        return out
-
-    tfm.flash_attention, tfm.grouped_matmul = fa, gmm
-    try:
+    with layer0_captured({}) as captured:
         model, ost, _ = step(model, ost, on_card(0))
         torch.cuda.synchronize()
-    finally:
-        tfm.flash_attention, tfm.grouped_matmul = real_fa, real_gmm
     times = []
     for i in range(1, 1 + LM_TIMED_STEPS):
         b = on_card(i)
@@ -4100,21 +4365,28 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
 def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
                   reps: int = REPS) -> dict:
     """K3's backward on one captured expert product: the Function's dx and
-    dw (three launches, all on ``simt``) against autograd through the
+    dw (three launches, all on the route of the operands' dtype, as
+    ``lm_launches_per_step`` has it) against autograd through the
     plain version, dw equal bit for bit over two calls, and each of the
-    three products as the Function calls it (forward, dx = dy w^T reading w
-    in place, dw = x^T dy reading x in place) timed beside ``torch.bmm`` on
-    the same operands (transposed views) and its bound, with the simt
-    kernel's output tile rows.  ``dy`` is scaled to unit RMS, as ``dout`` in
-    ``attention_bwd_phase``."""
+    three products as the Function calls it (forward; dx = dy w^T and dw =
+    x^T dy with the layout flags) timed beside ``torch.bmm`` on the same
+    operands (transposed views) and its bound.  On ``simt`` (fp32) the
+    flags read w and x in place, each product is gated at
+    ``GMM_SIMT_LIMIT_MS`` and the output tile rows are recorded; ``tc``
+    (bf16) takes no flags, so the wrapper first copies the transposed
+    operand into its logical layout: that copy and the launch on the
+    copied operands are timed apart too.  ``dy`` is scaled to unit RMS, as
+    ``dout`` in ``attention_bwd_phase``."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.grouped_matmul.ops import (grouped_matmul,
                                                         route, simt_tile)
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    simt = x.dtype == torch.float32
+    want_route = "simt" if simt else "tc"
     dy = _unit_rms(dy)
     before = {n: kernels.LAUNCHES.get(n, 0)
-              for n in ("grouped_matmul", "grouped_matmul.simt")}
+              for n in ("grouped_matmul", f"grouped_matmul.{want_route}")}
     xg, wg = (t.detach().clone().requires_grad_() for t in (x, w))
     got = torch.autograd.grad(grouped_matmul(xg, wg), (xg, wg), dy)
     torch.cuda.synchronize()
@@ -4126,35 +4398,38 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
     want = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr), dy)
     verdicts = _grad_verdicts(label, "xw", got, want, tol)
     rec = dict(max(verdicts, key=lambda r: r["worst_of_tol"]))
+    del xg, wg, xr, wr, want
     dw_again = grouped_matmul(x, dy, trans_x=True)
     torch.cuda.synchronize()
     require(torch.equal(dw_again, got[1]),
             f"{label}: dw differs between two calls")
+    del dw_again, got
     products = {}
     for name, (a, b, flags) in (
             ("fwd", (x, w, {})), ("dx", (dy, w, {"trans_w": True})),
             ("dw", (x, dy, {"trans_x": True}))):
         al = a.transpose(1, 2) if flags.get("trans_x") else a
         bl = b.transpose(1, 2) if flags.get("trans_w") else b
-        require(route(al, bl) == "simt", f"{label} {name}: route "
-                                         f"{route(al, bl)}")
+        require(route(al, bl) == want_route,
+                f"{label} {name}: route {route(al, bl)}, expected "
+                f"{want_route}")
         G, M, K = al.shape
         N = bl.shape[2]
         bound_ms, bound_by = _bwd_bound(
             a.element_size() * (a.numel() + b.numel() + G * M * N),
-            2 * G * M * K * N, False)
+            2 * G * M * K * N, not simt)
         kernel_ms = cuda_ms(lambda: grouped_matmul(a, b, **flags), reps,
                             batch=GMM_BATCH)
         library_ms = cuda_ms(lambda: torch.bmm(al, bl), reps,
                              batch=GMM_BATCH)
-        require(kernel_ms <= GMM_SIMT_LIMIT_MS,
-                f"{label} {name}: simt {kernel_ms:.4g} ms > "
-                f"{GMM_SIMT_LIMIT_MS} ms")
+        if simt:
+            require(kernel_ms <= GMM_SIMT_LIMIT_MS,
+                    f"{label} {name}: simt {kernel_ms:.4g} ms > "
+                    f"{GMM_SIMT_LIMIT_MS} ms")
         products[name] = {
             "shape": {"G": G, "M": M, "K": K, "N": N},
             "layout": {"trans_x": bool(flags.get("trans_x")),
                        "trans_w": bool(flags.get("trans_w"))},
-            "tile_rows": simt_tile(G, M, N),
             "kernel_ms": kernel_ms,
             "kernel_ms_single": cuda_ms(
                 lambda: grouped_matmul(a, b, **flags), reps),
@@ -4162,10 +4437,23 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
                                 max(3, reps // 4), warmup=1),
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "pct_of_bound": 100 * bound_ms / kernel_ms,
-            "limit_ms": GMM_SIMT_LIMIT_MS,
             "kernel_over_library": kernel_ms / library_ms}
+        if simt:
+            products[name].update(tile_rows=simt_tile(G, M, N),
+                                  limit_ms=GMM_SIMT_LIMIT_MS)
+        elif flags:
+            # the transposed operand's copy, then the launch alone
+            moved = al if flags.get("trans_x") else bl
+            ac, bc = al.contiguous(), bl.contiguous()
+            products[name].update(
+                copy_ms=cuda_ms(lambda: moved.contiguous(), reps,
+                                batch=GMM_BATCH),
+                copy_bytes=2 * moved.numel() * moved.element_size(),
+                launch_ms=cuda_ms(lambda: grouped_matmul(ac, bc), reps,
+                                  batch=GMM_BATCH))
+            del ac, bc
     rec.update({"phase": "kernel", "name": "grouped_matmul_bwd",
-                "input": label, "dtype": str(x.dtype), "route": "simt",
+                "input": label, "dtype": str(x.dtype), "route": want_route,
                 "verdicts": verdicts, "dw_bit_equal_two_calls": True,
                 "products": products})
     return rec
@@ -4320,6 +4608,15 @@ def run() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit(dryrun_path(long))
+    del long
+
+    # mixed-precision training at OLMoE's widths, then K2 and K3, forward
+    # and backward, on the calls its warm-up step captured (the model and
+    # its optimizer state gone first)
+    bf16_rec, bf16_calls = lm_train_bf16_path()
+    emit(bf16_rec)
+    fa_bf16, fa_bwd_bf16, gmm_bf16, gmm_bwd_bf16 = lm_train_bf16_kernels(
+        bf16_calls)
 
     recsys_rec, copy_rec, bags = recsys_path()
     emit(copy_rec)
@@ -4413,27 +4710,32 @@ def run() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:69",
-            fa_phases[0], fa_phases + [fa_train, fa_moe] + long_phases,
+            fa_phases[0],
+            fa_phases + [fa_train, fa_moe, fa_bf16] + long_phases,
             serve_rec["launches"].get("flash_attention", 0)
             + archs_rec["launches"].get("flash_attention", 0)
             + long_rec["launches"].get("flash_attention", 0)
+            + bf16_rec["launches"].get("flash_attention", 0)
             + lm_launches.get("flash_attention", 0)),
         kernel_entry(
             "grouped_matmul",
             "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
             "src/repro/kernels/grouped_matmul/grouped_matmul.py:38",
-            gmm_phases[0], gmm_phases + gmm_bwd,
+            gmm_phases[0], gmm_phases + gmm_bwd + gmm_bf16 + gmm_bwd_bf16,
             serve_rec["launches"].get("grouped_matmul", 0)
             + archs_rec["launches"].get("grouped_matmul", 0)
             + long_rec["launches"].get("grouped_matmul", 0)
+            + bf16_rec["launches"].get("grouped_matmul", 0)
             + lm_launches.get("grouped_matmul", 0)),
         kernel_entry(
             "flash_attention_bwd",
             "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention_bwd.cu",
             "none (backward of K2; the reference differentiates its jnp "
-            "path)", bwd_phases[0], bwd_phases,
-            lm_launches.get("flash_attention_bwd", 0)),
+            "path)", fa_bwd_bf16, bwd_phases + [fa_bwd_bf16],
+            archs_rec["launches"].get("flash_attention_bwd", 0)
+            + bf16_rec["launches"].get("flash_attention_bwd", 0)
+            + lm_launches.get("flash_attention_bwd", 0)),
         kernel_entry(
             "embedding_bag",
             "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",

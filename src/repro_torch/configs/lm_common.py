@@ -4,13 +4,12 @@
 The parameter leaves are named and shaped as the reference's tree
 (``Transformer.reference_tree``: each layer leaf stacked ``[L, ...]``), the
 checkpoint format too, so ``_param_pspec``'s rules, ZeRO-1 and
-``train/elastic.py`` see the reference's leaves.  Differences:
-- the reference's ``REPRO_LM_PERF`` knobs are not read (``attn_p_bf16``
-  is refused by the model);
-- a bf16 config keeps its matmul weights in bf16 (the reference keeps fp32
-  masters), and the port trains float32 configs only, so the ``train_4k``
-  cell of a config that is not float32 is skipped, with
-  ``make_train_step``'s refusal as its reason.
+``train/elastic.py`` see the reference's leaves.  ``train_4k`` builds the
+model with fp32 masters (``master=True``), as the reference's
+``init_params`` does, so its argument leaves carry the reference's dtypes;
+prefill and decode keep the serving model (a bf16 config's matmul weights
+in bf16).  The reference's ``REPRO_LM_PERF`` knobs are not read
+(``attn_p_bf16`` is refused by the model).
 """
 from __future__ import annotations
 
@@ -38,10 +37,6 @@ LM_SHAPES = {
                            {"seq_len": 524288, "global_batch": 1}),
 }
 
-# ROADMAP's item for the reference's fp32-master, bf16-compute training
-MIXED_PRECISION_ITEM = ("ROADMAP 12, mixed-precision LM training with fp32 "
-                        "masters")
-
 
 class LMBundle(ArchBundle):
     family = "lm"
@@ -66,15 +61,12 @@ class LMBundle(ArchBundle):
                 "decode_32k": ShapeSpec("decode_32k", "decode",
                                         {"seq_len": 64, "global_batch": 2}),
             }
-        refusal = tfm.train_refusal(cfg)
-        if refusal:
-            self.shapes["train_4k"] = dataclasses.replace(
-                self.shapes["train_4k"],
-                skip=f"make_train_step: {refusal} ({MIXED_PRECISION_ITEM})")
 
     # ------------------------------------------------------------- abstract
-    def init_params_abstract(self) -> tfm.Transformer:
-        return tfm.Transformer(self.cfg, torch.device("meta"))
+    def init_params_abstract(self, master: bool = False) -> tfm.Transformer:
+        """The model on meta: with ``master`` (a train step's) every leaf
+        fp32, else the serving model's dtypes."""
+        return tfm.Transformer(self.cfg, torch.device("meta"), master=master)
 
     def _params_sds(self):
         return reference_specs((self.init_params_abstract(),))[0]
@@ -99,7 +91,7 @@ class LMBundle(ArchBundle):
         B = spec.dims["global_batch"]
         S = spec.dims["seq_len"]
         meta = torch.device("meta")
-        model = self.init_params_abstract()
+        model = self.init_params_abstract(master=spec.kind == "train")
         if spec.kind == "train":
             tokens = torch.empty((B, S), dtype=torch.int32, device=meta)
             return (model, self.abstract_adam_state(model),
@@ -188,7 +180,7 @@ class LMBundle(ArchBundle):
         B = spec.dims["global_batch"]
         pshard = self.param_shardings(mesh)
         if spec.kind == "train":
-            model = self.init_params_abstract()
+            model = self.init_params_abstract(master=True)
             ost_sds = reference_specs(
                 (model, self.abstract_adam_state(model)))[1]
             oshard = self.opt_shardings(mesh, ost_sds)
@@ -213,8 +205,9 @@ class LMBundle(ArchBundle):
     # ------------------------------------------------------------- concrete
     def make_concrete(self, shape: str, seed: int = 0, device=None):
         """Real small tensors on ``device`` (``None`` means cuda): weights
-        from a ``torch.Generator`` seeded with ``seed``, the reference's
-        tokens (the same draws) and zeroed caches."""
+        from a ``torch.Generator`` seeded with ``seed`` (fp32 masters for
+        ``train_4k``), the reference's tokens (the same draws) and zeroed
+        caches."""
         assert self.smoke, "concrete inputs only for smoke bundles"
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
@@ -222,7 +215,7 @@ class LMBundle(ArchBundle):
         B, S = spec.dims["global_batch"], spec.dims["seq_len"]
         model = tfm.init_params(
             self.cfg, torch.Generator(device=dev).manual_seed(seed),
-            device=dev)
+            device=dev, master=spec.kind == "train")
 
         def tokens(shape):
             return torch.as_tensor(rng.integers(0, self.cfg.vocab_size,

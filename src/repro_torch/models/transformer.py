@@ -16,13 +16,17 @@ reference's ``lax.scan``).  The KV cache is updated in place.
 
 Parameters live in ``nn.Module``s that mirror the reference's tree
 (``params_from_reference`` copies one over, ``params_to_reference`` copies
-back): matmul weights in ``cfg.dtype``, the router and the norm scales in
-fp32 (the reference's fp32 master copies, which it uses as fp32), so top-k
-routing sees the same fp32 logits in every compute dtype.  Built for
-serving, their parameters do not require gradients; ``make_train_step``
-turns that on for the parameters it trains, and only for float32 configs
-(the reference trains fp32 master copies; the port keeps a bf16 config's
-matmul weights in bf16).  Training runs each layer under
+back).  A model built with ``master=True`` (for training) holds every
+parameter in fp32, as the reference's ``init_params`` does: the forward
+casts each to ``cfg.dtype`` where it is used (the reference's casts), so a
+bf16 config computes in bf16 and its gradients arrive in fp32 through the
+casts.  A model built for serving (the default) keeps the matmul weights,
+the embedding and the head in ``cfg.dtype`` and the router and the norm
+scales in fp32, the port's deliberate divergence: half the weight bytes,
+and the casts cost nothing.  Either way top-k routing sees the same fp32
+logits.  Parameters are made without ``requires_grad``;
+``make_train_step`` turns it on for the parameters it trains, and refuses
+a model that is not all fp32.  Training runs each layer under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
 and differentiates through both kernels' ``autograd.Function``s.
 """
@@ -40,8 +44,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.models.common import (apply_rope, cross_entropy,
-                                       dense_init, resolve_device, rms_norm,
-                                       rope_angles, softcap)
+                                       dense_init, dense_init_,
+                                       resolve_device, rms_norm, rope_angles,
+                                       softcap)
 from repro_torch.models.sharding import shard_hint
 
 
@@ -132,10 +137,9 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, dt: torch.dtype):
         super().__init__()
-        D, H, K, hd, dt = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                           cfg.dtype)
+        D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         self.wq = _param((D, H * hd), dt, device)
         self.wk = _param((D, K * hd), dt, device)
         self.wv = _param((D, K * hd), dt, device)
@@ -149,11 +153,11 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """Dense SwiGLU (w1, w3 ``[D, F]``, w2 ``[F, D]``) or, for MoE, an fp32
     router ``[D, E]`` and stacked experts (w1, w3 ``[E, D, F]``, w2
-    ``[E, F, D]``)."""
+    ``[E, F, D]``), the experts in ``dt``."""
 
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, dt: torch.dtype):
         super().__init__()
-        D, F_, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
+        D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
         if cfg.moe:
             self.router = _param((D, E), torch.float32, device)
             self.w1 = _param((E, D, F_), dt, device)
@@ -166,11 +170,11 @@ class MLP(nn.Module):
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, dt: torch.dtype):
         super().__init__()
         D = cfg.d_model
-        self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.attn = Attention(cfg, device, dt)
+        self.mlp = MLP(cfg, device, dt)
         self.ln1 = _param((D,), torch.float32, device)
         self.ln2 = _param((D,), torch.float32, device)
         if cfg.post_norms:
@@ -180,19 +184,22 @@ class Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The parameter tree (uninitialised: ``init_params`` or
-    ``params_from_reference`` fill it); ``forward`` runs it."""
+    ``params_from_reference`` fill it); ``forward`` runs it.  With
+    ``master`` every parameter is fp32 (training); without, the matmul
+    weights, embedding and head are in ``cfg.dtype`` (serving)."""
 
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, master: bool = False):
         super().__init__()
         if cfg.attn_p_bf16:
             raise NotImplementedError(
                 "attn_p_bf16 (bf16 attention probabilities) changes the "
                 "numerics and is not supported by the port")
         D, V = cfg.d_model, cfg.vocab_size
-        self.embed = _param((V, D), cfg.dtype, device)
-        self.head = _param((D, V), cfg.dtype, device)
+        dt = torch.float32 if master else cfg.dtype
+        self.embed = _param((V, D), dt, device)
+        self.head = _param((D, V), dt, device)
         self.final_norm = _param((D,), torch.float32, device)
-        self.layers = nn.ModuleList(Layer(cfg, device)
+        self.layers = nn.ModuleList(Layer(cfg, device, dt)
                                     for _ in range(cfg.n_layers))
 
     def reference_tree(self) -> dict:
@@ -220,42 +227,37 @@ class Transformer(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device=None) -> Transformer:
+                device=None, master: bool = False) -> Transformer:
     """Random weights drawn from ``generator`` (on ``device``), with the
     reference's init laws: truncated-normal fan-in matmul weights (experts
     at 1/sqrt(fan-in) of their own input), zero biases, unit norm scales
-    (zero where zero-centred).  ``device=None`` means cuda."""
+    (zero where zero-centred).  ``device=None`` means cuda; ``master`` as
+    ``Transformer``'s (the same draws, kept in fp32)."""
     dev = resolve_device(device)
-    model = Transformer(cfg, dev)
-    D, H, K, hd, F_, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                          cfg.d_ff, cfg.vocab_size)
-    E = cfg.n_experts
+    model = Transformer(cfg, dev, master=master)
 
-    def draw(p, shape, scale=None):
-        p.copy_(dense_init(shape, generator, scale, device=dev))
+    def draw(p, scale=None):
+        if p.dtype == torch.float32:    # drawn in place: no second copy
+            dense_init_(p, generator, scale)
+        else:
+            p.copy_(dense_init(p.shape, generator, scale, device=dev))
 
     norm = 0.0 if cfg.zero_centered_norm else 1.0
-    draw(model.embed, (V, D), 1.0)
-    draw(model.head, (D, V))
+    draw(model.embed, 1.0)
+    draw(model.head)
     model.final_norm.fill_(norm)
     for layer in model.layers:
         a, m = layer.attn, layer.mlp
-        draw(a.wq, (D, H * hd))
-        draw(a.wk, (D, K * hd))
-        draw(a.wv, (D, K * hd))
-        draw(a.wo, (H * hd, D))
+        for w in (a.wq, a.wk, a.wv, a.wo):
+            draw(w)
         if cfg.qkv_bias:
             for b in (a.bq, a.bk, a.bv):
                 b.zero_()
         if cfg.moe:
-            draw(m.router, (D, E))
-            draw(m.w1, (E, D, F_), 1.0 / math.sqrt(D))
-            draw(m.w3, (E, D, F_), 1.0 / math.sqrt(D))
-            draw(m.w2, (E, F_, D), 1.0 / math.sqrt(F_))
-        else:
-            draw(m.w1, (D, F_))
-            draw(m.w3, (D, F_))
-            draw(m.w2, (F_, D), 1.0 / math.sqrt(F_))
+            draw(m.router)
+        # fan-in scale: an expert's is its own input (d_model, d_ff)
+        for w in (m.w1, m.w3, m.w2):
+            draw(w)
         layer.ln1.fill_(norm)
         layer.ln2.fill_(norm)
         if cfg.post_norms:
@@ -266,11 +268,12 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 @torch.no_grad()
 def params_from_reference(cfg: TransformerConfig, arrays: dict,
-                          device=None) -> Transformer:
+                          device=None, master: bool = False) -> Transformer:
     """The reference's parameter tree (``embed``, ``head``, ``final_norm``
     and ``layers`` with ``[L, ...]``-stacked leaves, as numpy arrays) as
-    the port's modules on ``device`` (``None`` means cuda)."""
-    model = Transformer(cfg, resolve_device(device))
+    the port's modules on ``device`` (``None`` means cuda); ``master`` as
+    ``Transformer``'s (with it, the reference's fp32 leaves as they are)."""
+    model = Transformer(cfg, resolve_device(device), master=master)
 
     def put(p, a):
         p.copy_(torch.tensor(np.asarray(a, dtype=np.float32)))
@@ -520,27 +523,29 @@ def loss_fn(model: Transformer, batch: dict, cfg: TransformerConfig):
     return loss + cfg.aux_loss_weight * aux, {"ce": loss, "aux": aux}
 
 
-def train_refusal(cfg: TransformerConfig) -> str | None:
-    """Why ``make_train_step`` refuses ``cfg``, or None: the port trains
-    float32 configs only."""
-    if cfg.dtype == torch.float32:
-        return None
-    return (f"{cfg.name} computes in {cfg.dtype}; the port trains float32 "
-            "configs only (it keeps a bf16 config's matmul weights in bf16, "
-            "where the reference trains fp32 master copies)")
-
-
 def make_train_step(cfg: TransformerConfig, adam_cfg):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: ``repro_torch.train.step``'s step over ``loss_fn``, one
-    int8 scale a stacked layer leaf under compression.  Float32 configs
-    only."""
+    int8 scale a stacked layer leaf under compression.  Any config: the
+    model must hold fp32 parameters (``master=True`` for a config that
+    computes in another dtype), which the forward casts to ``cfg.dtype``
+    and AdamW updates in fp32, as the reference's masters; a model that
+    does not raises ``ValueError`` (nothing is cast behind the caller)."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step as train_step
-    refusal = train_refusal(cfg)
-    if refusal:
-        raise ValueError(f"make_train_step: {refusal}")
-    return train_step(loss_fn, cfg, adam_cfg, groups=opt.stacked_leaves)
+    step = train_step(loss_fn, cfg, adam_cfg, groups=opt.stacked_leaves)
+
+    def train_step_on_masters(model, opt_state, batch):
+        low = sorted({str(p.dtype) for p in model.parameters()
+                      if p.dtype != torch.float32})
+        if low:
+            raise ValueError(
+                f"make_train_step: {cfg.name} trains fp32 master parameters"
+                f", and this model holds {', '.join(low)} ones; build the "
+                "model with masters (master=True)")
+        return step(model, opt_state, batch)
+
+    return train_step_on_masters
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -555,10 +560,11 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 def prefill(params, tokens, cfg: TransformerConfig, kv_caches):
     """Process the prompt, filling the cache.  Returns (last_logits,
-    caches)."""
+    caches); the last logits ``[B, V]`` are a tensor of their own, as the
+    reference's, so the step's ``[B, S, V]`` logits are freed."""
     logits, caches, _ = forward(params, tokens, cfg, kv_caches,
                                 cache_index=0)
-    return logits[:, -1], caches
+    return logits[:, -1].clone(), caches
 
 
 def decode_step(params, tokens, cfg: TransformerConfig, kv_caches, t):
@@ -566,7 +572,7 @@ def decode_step(params, tokens, cfg: TransformerConfig, kv_caches, t):
     (logits ``[B, V]``, caches)."""
     logits, caches, _ = forward(params, tokens, cfg, kv_caches,
                                 cache_index=t)
-    return logits[:, -1], caches
+    return logits[:, -1].clone(), caches
 
 
 def decode_step_multi(params, tokens, cfg: TransformerConfig, kv_caches,
@@ -576,4 +582,4 @@ def decode_step_multi(params, tokens, cfg: TransformerConfig, kv_caches,
     sequence)."""
     logits, caches, _ = forward(params, tokens, cfg, kv_caches,
                                 cache_index=pos)
-    return logits[:, -1], caches
+    return logits[:, -1].clone(), caches

@@ -1018,14 +1018,17 @@ def test_gnn_smoke_bundle_on_the_card_matches_the_cpu(card, arch, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     "prefill", "prefill_ints", "ragged", "chunk", "window_softcap",
-    "decode", "g4_hd32", "hd16", "hd128_g2", "keys_past_kv_len"])
+    "decode", "g4_hd32", "hd16", "hd128_g2", "keys_past_kv_len",
+    "hd128_olmoe"])
 def test_attention_backward_kernel_matches_plain_version(card, case, dtype):
     """``flash_attention_bwd`` on its recompute route (counted once)
     against autograd through the plain version: causal
     prefill (q_start and kv_len as [B] tensors and as ints), a length not a
     multiple of the 64-row tiles, a chunk at q_start > 0, a window with a
-    softcap, decode rows, G = 4, head dims 16, 32, 64 and 128, and a cache
-    longer than kv_len; 2e-3 in fp32, 2e-2 in bf16."""
+    softcap, decode rows, G = 4, head dims 16, 32, 64 and 128, a cache
+    longer than kv_len, and OLMoE's layout (G = 1 at head_dim 128, 8 kv
+    heads over 640 positions: the bf16 training path's call); 2e-3 in
+    fp32, 2e-2 in bf16."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
@@ -1050,6 +1053,8 @@ def test_attention_backward_kernel_matches_plain_version(card, case, dtype):
         G, hd, Sq, Skv = 2, 128, 150, 150
     elif case == "keys_past_kv_len":
         Sq, Skv = 100, 300
+    elif case == "hd128_olmoe":
+        K, hd, Sq, Skv = 8, 128, 640, 640
     kv_len = q_start + Sq
     q = torch.randn(B, Sq, K, G, hd, generator=g, device=card).to(dtype)
     k = torch.randn(B, Skv, K, hd, generator=g, device=card).to(dtype)
@@ -1133,6 +1138,76 @@ def test_grouped_matmul_backward_matches_plain_version(card, G, M, K, N,
     for a, b in zip(got, want):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,M,K,N", [(8, 160, 256, 128),   # OLMoE-like w1
+                                     (8, 160, 128, 256),   # and w2
+                                     (3, 40, 64, 72)])
+def test_grouped_matmul_bf16_backward_runs_on_tc(card, G, M, K, N):
+    """In bf16 at widths TMA takes, the Function's forward, dx and dw all
+    launch the tensor-core kernel (the transposed operand copied into its
+    logical layout first), and both gradients hold to autograd through
+    the plain version at the reference's bf16 tolerance (3e-2)."""
+    x, w = _gmm_operands(card, G, M, K, N, torch.bfloat16)
+    dy = _gmm_operands(card, G, M, N, 1, torch.bfloat16)[0]
+    before = {k: kernels.LAUNCHES.get(k, 0) for k in (
+        "grouped_matmul", "grouped_matmul.tc", "grouped_matmul.simt")}
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = torch.autograd.grad(grouped_matmul(xg, wg), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_matmul"] == before["grouped_matmul"] + 3
+    assert (kernels.LAUNCHES["grouped_matmul.tc"]
+            == before["grouped_matmul.tc"] + 3)
+    assert (kernels.LAUNCHES.get("grouped_matmul.simt", 0)
+            == before["grouped_matmul.simt"])
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(grouped_matmul_ref(xr, wr), (xr, wr), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+@pytest.mark.gpu
+def test_lm_bf16_train_step_on_masters_takes_the_bf16_routes(card):
+    """One train step of a small MoE in bf16 on fp32 masters
+    (``master=True``) on the card: K2's forward on ``tc`` 2L times (the
+    layer's recompute), its backward L times on ``recompute``, K3 12L
+    times on ``tc``; the loss and gradient norm finite, every master still
+    fp32 and moved; a serving model (bf16 weights) is refused."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    cfg = tfm.TransformerConfig(
+        name="tiny-moe-bf16", n_layers=2, d_model=256, n_heads=4,
+        n_kv_heads=4, d_ff=128, vocab_size=97, moe=True, n_experts=4,
+        top_k=2, dtype=torch.bfloat16)
+    assert cfg.hd == 64
+    model = tfm.init_params(cfg, torch.Generator(card).manual_seed(0),
+                            device=card, master=True)
+    acfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = tfm.make_train_step(cfg, acfg)
+    ost = opt.init(acfg, model.parameters())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 97, (2, 128)),
+                           device=card)
+    before = [p.detach().clone() for p in model.parameters()]
+    kernels.reset_launches()
+    model, ost, m = step(model, ost, {"tokens": toks})
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert dict(kernels.LAUNCHES) == {
+        "flash_attention": 2 * L, "flash_attention.tc": 2 * L,
+        "flash_attention_bwd": L, "flash_attention_bwd.recompute": L,
+        "grouped_matmul": 12 * L, "grouped_matmul.tc": 12 * L}
+    assert bool(torch.isfinite(m["loss"])) and bool(
+        torch.isfinite(m["grad_norm"]))
+    for p, q in zip(model.parameters(), before):
+        assert p.dtype == torch.float32 and not torch.equal(p, q)
+    serving = tfm.init_params(cfg, torch.Generator(card).manual_seed(0),
+                              device=card)
+    with pytest.raises(ValueError, match="master"):
+        step(serving, opt.init(acfg, serving.parameters()),
+             {"tokens": toks})
 
 
 @pytest.mark.gpu

@@ -242,13 +242,6 @@ def test_three_train_steps_match_reference(which, compress):
         _close(nu, _ref_leaf(rost.nu, name), what=f"nu {name}")
 
 
-def test_train_step_refuses_bf16_configs():
-    _, pc = _pair("dense")
-    with pytest.raises(ValueError, match="float32"):
-        tfm.make_train_step(dataclasses.replace(pc, dtype=torch.bfloat16),
-                            opt.AdamWConfig())
-
-
 def test_params_to_reference_inverts_params_from_reference(pair):
     jc, params, pc, model = pair
     back = tfm.params_to_reference(model, pc)

@@ -6,12 +6,13 @@ held against the reference's (``repro.configs.get_bundle``):
   ``AbstractMesh`` of 16x16 and 2x16x16, handed to both packages): the
   step's arguments in the reference's tree format
   (``reference_specs(input_specs)``) leaf for leaf against the
-  reference's ``input_specs``: the global shape, the dtype (bf16 where the
-  reference keeps an fp32 master of a bf16 config's matmul weight), and
+  reference's ``input_specs``: the global shape, the dtype (a serving
+  step's bf16 where the reference keeps an fp32 master of a bf16 config's
+  matmul weight; a train step's exactly the reference's), and
   the per-device shard shape of the port's sharding against jax's
   ``NamedSharding.shard_shape``; the hint tables' names; ``model_flops``;
-- the skipped cells: the reference's plus exactly the five bf16
-  ``train_4k`` cells;
+- the skipped cells: exactly the reference's four; the five bf16
+  ``train_4k`` cells run on ``meta`` on both production meshes;
 - each smoke bundle's first shape that runs, through the port's step and
   the reference's jitted step on the same weights (``params_from_reference``)
   and inputs: the loss and gradient norm at the training tests' rtol 1e-3 /
@@ -93,8 +94,10 @@ def test_full_bundle_shardings_match_reference(arch, mesh_name, ref_bundles):
         r_shards = jax.tree.leaves(
             r_in, is_leaf=lambda x: isinstance(x, JaxNamedSharding))
         assert len(leaves) == len(r_leaves) == len(shards) == len(r_shards)
-        bf16 = getattr(getattr(port, "cfg", None), "dtype",
-                       None) == torch.bfloat16
+        # a serving model keeps a bf16 config's matmul weights in bf16;
+        # a train step's leaves are the reference's fp32 masters
+        bf16 = (getattr(getattr(port, "cfg", None), "dtype", None)
+                == torch.bfloat16 and port.shapes[shape].kind != "train")
         for i, (leaf, r, sh, rsh) in enumerate(zip(leaves, r_leaves, shards,
                                                    r_shards)):
             where = f"{arch} {shape} leaf {i}"
@@ -112,24 +115,35 @@ def test_full_bundle_shardings_match_reference(arch, mesh_name, ref_bundles):
 
 def test_skipped_cells_are_the_references_and_the_bf16_train_cells(
         ref_bundles):
+    """The skipped cells are exactly the reference's four: the bf16
+    ``train_4k`` cells, which the port skipped while it trained float32
+    only, now run (the test keeps its name from then)."""
     port = {(a, s) for a in list_archs()
             for s, spec in get_bundle(a).shapes.items() if spec.skip}
     ref = {(a, s) for a, b in ref_bundles.items()
            for s, spec in b.shapes.items() if spec.skip}
     assert len(ref) == 4
-    assert port == ref | BF16_TRAIN_CELLS
-    for a, s in BF16_TRAIN_CELLS:
-        reason = get_bundle(a).shapes[s].skip
-        assert "make_train_step" in reason and "ROADMAP" in reason
+    assert port == ref
+    assert not port & BF16_TRAIN_CELLS
 
 
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
 @pytest.mark.parametrize("arch", LM_ARCHS)
-def test_train_refusal_is_the_skip_reason(arch):
-    """The skip quotes ``make_train_step``'s own refusal."""
-    bundle = get_bundle(arch)
-    with pytest.raises(ValueError) as err:
-        bundle.make_step("train_4k")
-    assert str(err.value) in bundle.shapes["train_4k"].skip
+def test_bf16_train_cell_runs_on_meta(arch, mesh_name):
+    """Each bf16 ``train_4k`` cell through ``run_cell`` on its production
+    mesh: OK, a train step on fp32 masters whose arguments are the
+    reference's leaves (every parameter and both moments fp32), the K2
+    forward and backward counted on meta, and K3 for the MoE configs."""
+    r = dryrun.run_cell(arch, "train_4k", mesh_name == "2x16x16")
+    assert r["status"] == "OK", r.get("error")
+    assert r["kind"] == "train"
+    kernels = r["roofline"]["kernels"]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert kernels[name]["flops"] > 0, name
+    assert ("grouped_matmul" in kernels) == get_bundle(arch).cfg.moe
+    model, ost, _ = get_bundle(arch).input_specs("train_4k")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert {t.dtype for t in ost.mu + ost.nu} == {torch.float32}
 
 
 # ------------------------------------------------------------ smoke twins

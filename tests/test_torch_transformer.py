@@ -121,6 +121,52 @@ def test_decode_step_multi_matches_reference(pair):
         _close(cp[n], cj[n])
 
 
+@pytest.fixture(scope="module")
+def olmoe_bf16():
+    """OLMoE's SMOKE config as it serves (bf16), the reference's weights
+    and a 64-token batch of 2."""
+    ref, port = _configs("olmoe_1b_7b")
+    params = jt.init_params(ref, jax.random.PRNGKey(0))
+    model = pt.params_from_reference(port, jax.tree.map(np.asarray, params),
+                                     device="cpu")
+    toks = np.random.default_rng(0).integers(0, 256, (2, 64)).astype(
+        np.int32)
+    return ref, params, port, model, toks
+
+
+@pytest.mark.parametrize("entry", ["prefill", "decode_step",
+                                   "decode_step_multi"])
+def test_last_logits_hold_only_their_own_rows(entry, olmoe_bf16):
+    """The three entry points return the last position's logits as a
+    tensor of its own, as the reference does: its storage holds exactly
+    the reference's ``[B, V]`` bytes (1,024 here), not the whole ``[B, S,
+    V]`` logits a view of their last row would keep alive (65,536 for the
+    64-token prefill)."""
+    ref, params, port, model, toks = olmoe_bf16
+    B, S = toks.shape
+    cj = jt.init_kv_cache(ref, B, S + 1)
+    cp = pt.init_kv_cache(port, B, S + 1, device="cpu")
+    if entry == "prefill":
+        want, _ = jt.prefill(params, jnp.asarray(toks), ref, cj)
+        got, _ = pt.prefill(model, torch.as_tensor(toks), port, cp)
+    elif entry == "decode_step":
+        want, _ = jt.decode_step(params, jnp.asarray(toks[:, :1]), ref, cj,
+                                 jnp.int32(S))
+        got, _ = pt.decode_step(model, torch.as_tensor(toks[:, :1]), port,
+                                cp, S)
+    else:
+        pos = np.array([3, S], np.int32)
+        want, _ = jt.decode_step_multi(params, jnp.asarray(toks[:, :1]), ref,
+                                       cj, jnp.asarray(pos))
+        got, _ = pt.decode_step_multi(model, torch.as_tensor(toks[:, :1]),
+                                      port, cp, torch.as_tensor(pos))
+    want = np.asarray(want)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (
+        B, port.vocab_size)
+    assert got.untyped_storage().nbytes() == want.nbytes == 1024
+    assert got.is_contiguous()
+
+
 _TINY = dict(name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
              d_ff=64, vocab_size=61, block_q=8, block_kv=8)
 
