@@ -8,8 +8,10 @@ Phases, each printing one JSON line:
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
 2. build   — every CUDA kernel of the port compiled with nvcc (sm_90a), one
              process per source, all started together, timed as set-up;
-             no ptxas spill in K1, K4 (forward and backward) and the 8
-             instantiations of K2's ``attn_rows_kernel``;
+             no ptxas spill in K1, K4 (forward and backward), the 8
+             instantiations of K2's ``attn_rows_kernel``, the 6 of its
+             tensor-core backward (``attn_bwd_tc_*``) and the 8 of K3's
+             ``gmm_kernel_tc`` (two tile shapes x four layouts);
 3. kernel  — the WCOJ probe held against its plain PyTorch version on the
              card (exact equality), on its ``fence`` route (a walk down the
              CSR's search index) and its ``search`` route (a binary
@@ -165,21 +167,25 @@ Phases, each printing one JSON line:
              gradient norm finite; every master fp32 and moved by a step;
              peak memory at most 60e9 bytes; exactly 2L K2 launches a step
              on ``tc`` (the forward and the checkpointed layer's
-             recompute), L K2 backward launches on ``recompute`` and 12L K3
+             recompute), L K2 backward launches on ``tc`` and 12L K3
              launches on ``tc``; the cut cell's dry run on a (1, 1) mesh
              predicting exactly the bytes the step was passed (once its
              one residual scalar a port tensor is counted, as the dry run
              counts it, one a reference leaf);
 22. kernel — on layer 0's calls captured in the warm-up step: K2's ``tc``
              forward (``[2, 4096, 16, 1, 128]``) against its plain version
-             (2e-2), as ``kernel`` above, then its bf16 backward (the
-             output gradient at unit RMS) against autograd through the
-             plain version over all 4,096 rows (2e-2), as
+             (2e-2), as ``kernel`` above, then its bf16 backward on its
+             ``tc`` route (the output gradient at unit RMS) against
+             autograd through the plain version over all 4,096 rows
+             (2e-2), bit-equal over two calls, at most 3.0 ms queued, as
              ``attention_bwd`` below, beside SDPA's bf16 backward and its
-             operations bound; then for the w1 and w2 products K3's
-             ``tc`` forward (3e-2) and its backward on ``tc`` (3e-2), each
-             product timed, the transposed copy that ``tc`` needs apart
-             from the launch, beside ``torch.bmm``;
+             operations bound, the statistics pass timed apart from the dq
+             and dk/dv kernels; then for the w1 and w2 products K3's
+             ``tc`` forward (3e-2) and its backward on ``tc`` (3e-2, dw
+             bit-equal), each product timed beside ``torch.bmm``, dx and dw
+             (the transposed operand read in place through the layout
+             flags) queued, at most 0.80 ms each, and profiled over 10
+             calls: the product's kernel and no other;
 23. recsys — Wide & Deep at its full ``CONFIG`` (3.7e9 parameters, a
              13.7 GB embedding table; random fp32 weights from a seeded
              generator on the card) serving the reference's three shapes:
@@ -281,8 +287,8 @@ Phases, each printing one JSON line:
              forward's output and log-sum-exp; at most 1.6 ms) and on the
              other route, beside its operations bound and the backward of
              SDPA (``is_causal``) on the same inputs; then the same
-             operands cast to bf16 (the forward on ``tc``, the backward
-             recomputing), held at 2e-2; then K2's ``rows`` forward at
+             operands cast to bf16 (the forward and the backward on
+             ``tc``), held at 2e-2; then K2's ``rows`` forward at
              ``lm-moe``'s layer 0 (head_dim 32);
 32. kernel — K3's backward (``gmm_bwd``) on ``lm-moe``'s layer-0 w1 and
              w2 products captured the same way (``dy`` at unit RMS): both
@@ -338,6 +344,10 @@ ATTENTION_LSE_TOL = 1e-4
 # head_dim 16, 32, 64 and 128, must not spill
 ATTN_ROWS_TRAIN_LIMIT_MS, ATTN_ROWS_PREFILL_LIMIT_MS = 0.55, 0.93
 ROWS_INSTANTIATIONS = 8
+# the tensor-core kernels that must not spill either: K2's tc backward
+# (three kernels at head_dim 64 and 128), K3's tc kernel (two tile shapes
+# x the four layouts of x and w)
+BWD_TC_INSTANTIATIONS, GMM_TC_INSTANTIATIONS = 6, 8
 GMM_BATCH = 10      # grouped-matmul calls per timed run
 ATTN_BATCH = 10     # attention calls per timed run, queued behind a sleep
 BAG_BATCH = 10      # embedding-bag calls per timed run, queued behind a sleep
@@ -399,9 +409,14 @@ LM_CHECK_SHAPE = (1, 256)
 LM_TIMED_STEPS = 5
 # the backward kernels' gates (ISSUE-set, H100): K2's fp32 backward on
 # lm100m's layer 0 as the training path calls it, and each of K3's six
-# simt products of lm-moe's layer 0 (forward, dx, dw of w1 and w2)
+# simt products of lm-moe's layer 0 (forward, dx, dw of w1 and w2); K2's
+# bf16 backward on its tc route (OLMoE's layer 0 in lm_train_bf16, queued),
+# and K3 tc's dx and dw of w1 and w2 there, read in place through the
+# layout flags (queued)
 ATTN_BWD_LIMIT_MS = 1.6
+ATTN_BWD_BF16_LIMIT_MS = 3.0
 GMM_SIMT_LIMIT_MS = 0.33
+GMM_TC_BWD_LIMIT_MS = 0.80
 # long context: OLMoE at CONFIG through get_bundle, the reference's
 # prefill_32k and decode_32k cut in batch (32 -> 1, 128 -> 8); prefills
 # and ticks timed after one warm-up; the query rows of the captured 32k
@@ -3950,12 +3965,12 @@ def lm_launches_per_step(cfg) -> dict:
     forward on ``rows``, which keeps the log-sum-exp for the backward's
     ``saved`` route, and K3 on ``simt``; bf16 (at head_dim 64 or 128 and
     K3's widths in multiples of 8, as every full LM config) runs K2's
-    forward on ``tc``, which keeps none, so the backward takes its
-    ``recompute`` route, and K3 on ``tc``."""
+    forward and backward on ``tc`` and K3 on ``tc`` (its backward reading
+    the transposed operands in place through the layout flags)."""
     import torch
     fp32 = cfg.dtype == torch.float32
     fa, bwd, gm = (("rows", "saved", "simt") if fp32
-                   else ("tc", "recompute", "tc"))
+                   else ("tc", "tc", "tc"))
     fwd = 1 + int(cfg.remat)
     gmm = (3 * fwd + 6) * cfg.n_layers if cfg.moe else 0
     return {"flash_attention": fwd * cfg.n_layers,
@@ -4241,25 +4256,66 @@ def _bwd_bound(nbytes: int, ops: float, bf16: bool) -> tuple[float, str]:
                                    else "operations")
 
 
+def _device_ms_by_kernel(fn, calls: int, keys: tuple) -> dict:
+    """Device ms a launch of each kernel whose name holds one of ``keys``,
+    from ``torch.profiler`` over ``calls`` calls of ``fn`` (after one
+    warm-up): each kernel's device time over the launches the trace
+    recorded (a trace may drop some), with those counts and the names of
+    every other device kernel the calls ran.  A trace missing one of the
+    kernels is taken again, as in ``profile_step``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = {key: 0.0 for key in keys}
+        count = {key: 0 for key in keys}
+        other = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            key = next((k for k in keys if k in ev.key), None)
+            if key is None:
+                other.append(ev.key[:80])
+            else:
+                total[key] += ev.self_device_time_total / 1e3
+                count[key] += ev.count
+        if all(count.values()):
+            return {"ms": {k: total[k] / count[k] for k in keys},
+                    "launches_traced": count, "calls": calls,
+                    "other_kernels": other}
+    raise SmokeFailure(f"profiler recorded no launch of one of {keys} in "
+                       f"{PROFILE_ATTEMPTS} traces")
+
+
 def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
                         dout, tol: float, reps: int = REPS) -> dict:
     """K2's backward kernels against autograd through the plain version on
     one captured call: the Function's gradients (forward on its route,
-    backward counted once, on the route the training path takes: ``saved``
-    where the forward keeps its log-sum-exp, fp32 on ``rows``), the other
-    route's gradients, the bound (10 hd flops an admissible pair: the five
-    products), the plain backward and SDPA's causal backward; both routes
-    timed, the saved one as the training path calls it (with the forward's
-    output and log-sum-exp), and its gradients equal bit for bit over two
-    calls.  The backward is linear in ``dout``; the captured one (of a loss
-    averaged over every token) is scaled to unit RMS, so the gradients are
-    O(1) and the tolerance is far below them."""
+    backward counted once, on the route ``bwd_route`` names, as the
+    training path takes it: ``tc`` for bf16 the tensor cores take,
+    ``saved`` for fp32 on ``rows``, whose forward keeps its log-sum-exp),
+    on ``saved`` also the ``recompute`` route's gradients, the bound (10 hd
+    flops an admissible pair: the five products), the plain backward and
+    SDPA's causal backward; the route timed as the training path calls it
+    (``saved`` with the forward's output and log-sum-exp; then
+    ``recompute`` too), its gradients equal bit for bit over two calls,
+    and on ``tc`` the device time of its statistics pass apart from its dq
+    and dk/dv kernels (``torch.profiler``).  The fp32 route is gated at
+    ``ATTN_BWD_LIMIT_MS``, ``tc`` at ``ATTN_BWD_BF16_LIMIT_MS``.  The
+    backward is linear in ``dout``; the captured one (of a loss averaged
+    over every token) is scaled to unit RMS, so the gradients are O(1) and
+    the tolerance is far below them."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_lse, route,
-        saves_lse)
+        bwd_route, flash_attention, flash_attention_bwd, flash_attention_lse,
+        route, saves_lse)
     from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                          per_batch)
     B, Sq, Kh, G, hd = q.shape
@@ -4271,11 +4327,11 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
     if saves_lse(q, k, v):
         out, lse = flash_attention_lse(q, k, v, starts, lens, **kw)
         saved = {"out": out, "lse": lse}
-    which = "saved" if saved else "recompute"
+    which = bwd_route(q, k, v)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     before = {n: kernels.LAUNCHES.get(n, 0) for n in (
-        "flash_attention_bwd", "flash_attention_bwd.saved",
-        "flash_attention_bwd.recompute")}
+        "flash_attention_bwd", "flash_attention_bwd.tc",
+        "flash_attention_bwd.saved", "flash_attention_bwd.recompute")}
     out_fn = flash_attention(*leaves, starts, lens, **kw)
     got = torch.autograd.grad(out_fn, leaves, dout)
     torch.cuda.synchronize()
@@ -4317,7 +4373,20 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
                         reps, batch=ATTN_BATCH, queued=True)
     recompute_ms = (cuda_ms(lambda: flash_attention_bwd(*call, **kw), reps,
                             batch=ATTN_BATCH, queued=True)
-                    if saved else kernel_ms)
+                    if saved else None)
+    stages = None
+    if which == "tc":
+        split = _device_ms_by_kernel(
+            lambda: flash_attention_bwd(*call, **kw), ATTN_BATCH,
+            ("attn_bwd_tc_stats", "attn_bwd_tc_dq", "attn_bwd_tc_dkv"))
+        ms = split["ms"]
+        stages = {"stats_ms": ms["attn_bwd_tc_stats"],
+                  "dq_ms": ms["attn_bwd_tc_dq"],
+                  "dkv_ms": ms["attn_bwd_tc_dkv"],
+                  "grads_ms": ms["attn_bwd_tc_dq"] + ms["attn_bwd_tc_dkv"],
+                  "launches_traced": split["launches_traced"],
+                  "calls": split["calls"],
+                  "other_kernels": split["other_kernels"]}
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         out_ref, plain, dout, retain_graph=True), max(3, reps // 4),
         warmup=1)
@@ -4336,10 +4405,12 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             out_lib, heads, d_heads, retain_graph=True), reps,
             batch=ATTN_BATCH, queued=True)
-    if q.dtype == torch.float32:
-        require(kernel_ms <= ATTN_BWD_LIMIT_MS,
-                f"{label}: backward {kernel_ms:.4g} ms > "
-                f"{ATTN_BWD_LIMIT_MS} ms")
+    limit_ms = {"saved": ATTN_BWD_LIMIT_MS,
+                "tc": ATTN_BWD_BF16_LIMIT_MS}.get(which)
+    if limit_ms is not None:
+        require(kernel_ms <= limit_ms,
+                f"{label}: {which} backward {kernel_ms:.4g} ms > "
+                f"{limit_ms} ms")
     rec.update({"phase": "kernel", "name": "flash_attention_bwd",
                 "input": label, "forward_route": route(q, k, v),
                 "route": which,
@@ -4352,8 +4423,7 @@ def attention_bwd_phase(label: str, q, k, v, q_start, kv_len, kw: dict,
                 "kernel_ms_single": cuda_ms(
                     lambda: flash_attention_bwd(*call, **kw, **saved), reps),
                 "kernel_ms_recompute": recompute_ms,
-                "limit_ms": (ATTN_BWD_LIMIT_MS if q.dtype == torch.float32
-                             else None),
+                "stages": stages, "limit_ms": limit_ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "pct_of_bound": 100 * bound_ms / kernel_ms,
@@ -4369,13 +4439,13 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
     ``lm_launches_per_step`` has it) against autograd through the
     plain version, dw equal bit for bit over two calls, and each of the
     three products as the Function calls it (forward; dx = dy w^T and dw =
-    x^T dy with the layout flags) timed beside ``torch.bmm`` on the same
-    operands (transposed views) and its bound.  On ``simt`` (fp32) the
-    flags read w and x in place, each product is gated at
-    ``GMM_SIMT_LIMIT_MS`` and the output tile rows are recorded; ``tc``
-    (bf16) takes no flags, so the wrapper first copies the transposed
-    operand into its logical layout: that copy and the launch on the
-    copied operands are timed apart too.  ``dy`` is scaled to unit RMS, as
+    x^T dy reading w and x in place through the layout flags) timed beside
+    ``torch.bmm`` on the same operands (transposed views) and its bound.
+    On ``simt`` (fp32) each product is gated at ``GMM_SIMT_LIMIT_MS`` and
+    the output tile rows are recorded; on ``tc`` (bf16) the flagged dx and
+    dw are timed queued and gated at ``GMM_TC_BWD_LIMIT_MS``, and
+    ``GMM_BATCH`` calls of each, profiled, run the tensor-core kernel and no
+    other kernel (no copy of a transposed operand).  ``dy`` is scaled to unit RMS, as
     ``dout`` in ``attention_bwd_phase``."""
     import torch
     from repro_torch import kernels
@@ -4408,24 +4478,26 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
     for name, (a, b, flags) in (
             ("fwd", (x, w, {})), ("dx", (dy, w, {"trans_w": True})),
             ("dw", (x, dy, {"trans_x": True}))):
+        require(route(a, b, **flags) == want_route,
+                f"{label} {name}: route {route(a, b, **flags)}, expected "
+                f"{want_route}")
         al = a.transpose(1, 2) if flags.get("trans_x") else a
         bl = b.transpose(1, 2) if flags.get("trans_w") else b
-        require(route(al, bl) == want_route,
-                f"{label} {name}: route {route(al, bl)}, expected "
-                f"{want_route}")
         G, M, K = al.shape
         N = bl.shape[2]
         bound_ms, bound_by = _bwd_bound(
             a.element_size() * (a.numel() + b.numel() + G * M * N),
             2 * G * M * K * N, not simt)
+        gated = simt or bool(flags)
+        limit_ms = GMM_SIMT_LIMIT_MS if simt else GMM_TC_BWD_LIMIT_MS
         kernel_ms = cuda_ms(lambda: grouped_matmul(a, b, **flags), reps,
-                            batch=GMM_BATCH)
+                            batch=GMM_BATCH, queued=not simt)
         library_ms = cuda_ms(lambda: torch.bmm(al, bl), reps,
-                             batch=GMM_BATCH)
-        if simt:
-            require(kernel_ms <= GMM_SIMT_LIMIT_MS,
-                    f"{label} {name}: simt {kernel_ms:.4g} ms > "
-                    f"{GMM_SIMT_LIMIT_MS} ms")
+                             batch=GMM_BATCH, queued=not simt)
+        if gated:
+            require(kernel_ms <= limit_ms,
+                    f"{label} {name}: {want_route} {kernel_ms:.4g} ms > "
+                    f"{limit_ms} ms")
         products[name] = {
             "shape": {"G": G, "M": M, "K": K, "N": N},
             "layout": {"trans_x": bool(flags.get("trans_x")),
@@ -4437,21 +4509,21 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
                                 max(3, reps // 4), warmup=1),
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "pct_of_bound": 100 * bound_ms / kernel_ms,
-            "kernel_over_library": kernel_ms / library_ms}
+            "kernel_over_library": kernel_ms / library_ms,
+            "limit_ms": limit_ms if gated else None}
         if simt:
-            products[name].update(tile_rows=simt_tile(G, M, N),
-                                  limit_ms=GMM_SIMT_LIMIT_MS)
+            products[name]["tile_rows"] = simt_tile(G, M, N)
         elif flags:
-            # the transposed operand's copy, then the launch alone
-            moved = al if flags.get("trans_x") else bl
-            ac, bc = al.contiguous(), bl.contiguous()
+            # the flagged calls' device kernels: the product alone
+            split = _device_ms_by_kernel(
+                lambda: grouped_matmul(a, b, **flags), GMM_BATCH,
+                ("gmm_kernel_tc",))
+            require(not split["other_kernels"],
+                    f"{label} {name}: the flagged call ran "
+                    f"{split['other_kernels']} beside its product")
             products[name].update(
-                copy_ms=cuda_ms(lambda: moved.contiguous(), reps,
-                                batch=GMM_BATCH),
-                copy_bytes=2 * moved.numel() * moved.element_size(),
-                launch_ms=cuda_ms(lambda: grouped_matmul(ac, bc), reps,
-                                  batch=GMM_BATCH))
-            del ac, bc
+                profiled_kernel_ms=split["ms"]["gmm_kernel_tc"],
+                profiled_launches=split["launches_traced"]["gmm_kernel_tc"])
     rec.update({"phase": "kernel", "name": "grouped_matmul_bwd",
                 "input": label, "dtype": str(x.dtype), "route": want_route,
                 "verdicts": verdicts, "dw_bit_equal_two_calls": True,
@@ -4462,14 +4534,24 @@ def gmm_bwd_phase(label: str, x, w, dy, tol: float = GMM_FP32_TOL,
 # ------------------------------------------------------------------ report
 
 def kernel_entry(name: str, source: str, replaces: str, heaviest: dict,
-                 phases: list[dict], launches: int) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(p["max_abs_err"] for p in phases),
-            "ms": heaviest["kernel_ms"], "plain_ms": heaviest["plain_ms"],
-            "bound_ms": heaviest["bound_ms"],
-            "bound_by": heaviest["bound_by"],
-            "library_ms": heaviest["library_ms"]}
+                 phases: list[dict], launches: int,
+                 routes: dict | None = None) -> dict:
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(p["max_abs_err"] for p in phases),
+             "ms": heaviest["kernel_ms"], "plain_ms": heaviest["plain_ms"],
+             "bound_ms": heaviest["bound_ms"],
+             "bound_by": heaviest["bound_by"],
+             "library_ms": heaviest["library_ms"]}
+    if routes is not None:
+        entry["routes"] = routes
+    return entry
+
+
+def route_launches(name: str, routes: tuple, *counts: dict) -> dict:
+    """Launches of ``name`` on each of ``routes`` (the ``name.route``
+    counts), summed over the paths' launch counts."""
+    return {r: sum(c.get(f"{name}.{r}", 0) for c in counts) for r in routes}
 
 
 def run() -> int:
@@ -4498,16 +4580,21 @@ def run() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    require(len(built) == 6, f"expected 6 kernel sources, found "
+    require(len(built) == 7, f"expected 7 kernel sources, found "
                              f"{sorted(s.name for s in built)}")
-    # no ptxas spill in K1, K4 (forward and backward) and K2's rows kernel
-    # (its instantiations picked out by name, so the tc kernel's report
-    # decides nothing)
+    # no ptxas spill in K1, K4 (forward and backward), K2's rows kernel,
+    # K2's tc backward (stats, dq and dk/dv at head_dim 64 and 128) and K3's
+    # tc kernel (two tile shapes x four layouts), the instantiations
+    # picked out by name, so the other kernels' reports decide nothing
     for stem, name, want in (("embedding_bag", "", None),
                              ("embedding_bag_bwd", "", None),
                              ("wcoj_intersect", "", None),
                              ("flash_attention", "attn_rows_kernel",
-                              ROWS_INSTANTIATIONS)):
+                              ROWS_INSTANTIATIONS),
+                             ("flash_attention_bwd_tc", "attn_bwd_tc_",
+                              BWD_TC_INSTANTIATIONS),
+                             ("grouped_matmul", "gmm_kernel_tc",
+                              GMM_TC_INSTANTIATIONS)):
         b = next(b for src, b in built.items() if src.stem == stem)
         n, spills = _build.spills(b["log"], name)
         require(not spills, f"{stem} {name}: ptxas spills {spills}")
@@ -4693,6 +4780,14 @@ def run() -> int:
         for part in (rec["launches"], rec.get("resumed_launches", {})):
             for name, n in part.items():
                 lm_launches[name] = lm_launches.get(name, 0) + n
+    lm_paths = (serve_rec["launches"], archs_rec["launches"],
+                long_rec["launches"], bf16_rec["launches"], lm_launches)
+    bwd_routes = route_launches("flash_attention_bwd",
+                                ("tc", "saved", "recompute"), *lm_paths)
+    # K3 tc's dx and dw with layout flags: the heaviest captured product
+    flagged = max((p for r in gmm_bwd_bf16
+                   for n, p in r["products"].items() if n != "fwd"),
+                  key=lambda p: p["kernel_ms"])
 
     # the kernels line reports the heaviest captured call of each kernel
     emit({"kernels": [
@@ -4726,16 +4821,30 @@ def run() -> int:
             + archs_rec["launches"].get("grouped_matmul", 0)
             + long_rec["launches"].get("grouped_matmul", 0)
             + bf16_rec["launches"].get("grouped_matmul", 0)
-            + lm_launches.get("grouped_matmul", 0)),
+            + lm_launches.get("grouped_matmul", 0),
+            route_launches("grouped_matmul", ("tc", "simt"), *lm_paths)),
+        kernel_entry(
+            "grouped_matmul (tc, layout flags: the bf16 backward's dx, dw)",
+            "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:38",
+            flagged, gmm_bwd_bf16,
+            # dx and dw are 6 of the 12 K3 launches a layer in a step
+            bf16_rec["launches"].get("grouped_matmul.tc", 0) // 2),
         kernel_entry(
             "flash_attention_bwd",
             "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention_bwd.cu",
             "none (backward of K2; the reference differentiates its jnp "
-            "path)", fa_bwd_bf16, bwd_phases + [fa_bwd_bf16],
-            archs_rec["launches"].get("flash_attention_bwd", 0)
-            + bf16_rec["launches"].get("flash_attention_bwd", 0)
-            + lm_launches.get("flash_attention_bwd", 0)),
+            "path)", bwd_phases[0], bwd_phases[:1],
+            bwd_routes["saved"] + bwd_routes["recompute"],
+            {r: bwd_routes[r] for r in ("saved", "recompute")}),
+        kernel_entry(
+            "flash_attention_bwd_tc",
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd_tc.cu",
+            "none (backward of K2 in bf16; the reference differentiates its "
+            "jnp path)", fa_bwd_bf16, [bwd_phases[1], fa_bwd_bf16],
+            bwd_routes["tc"], {"tc": bwd_routes["tc"]}),
         kernel_entry(
             "embedding_bag",
             "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",

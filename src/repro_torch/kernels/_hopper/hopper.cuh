@@ -2,8 +2,9 @@
 // pipelines, TMA tensor loads, wgmma descriptors and products, the
 // host-side tensor-map encoder, and cp.async copies for the fp32 SIMT
 // kernels.  Included by grouped_matmul/csrc/grouped_matmul.cu and
-// flash_attention/csrc/flash_attention{,_bwd}.cu; _build.library_path
-// hashes it with each of them, so an edited helper rebuilds all three.
+// flash_attention/csrc/flash_attention{,_bwd,_bwd_tc}.cu;
+// _build.library_path hashes it with each of them, so an edited helper
+// rebuilds all four.
 
 #pragma once
 
@@ -146,6 +147,16 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16) from global `src` to shared
+// `dst` (both 16-byte aligned), completing on `bar` as a TMA load does.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
 // ----------------------------------------------------------------- wgmma
 
 // wgmma shared-memory descriptor with the 128-byte swizzle: start address,
@@ -182,9 +193,30 @@ __device__ __forceinline__ void fence_acc(float (&d)[kRegs]) {
 // columns j*8 + (l%4)*2 (+1), in d[j*4 + 0..3] = (r, c), (r, c+1),
 // (r+8, c), (r+8, c+1).
 
-// D[64 x 64] += A[64 x 16] (shared, K-major) * B[16 x 64] (shared; kTransB
-// 1: MN-major, 0: K-major), fp32 sums; scale_d 0 overwrites D
-template <int kTransB>
+// D[64 x 32] += A[64 x 16] (shared; kTransA 0: K-major, 1: M-major) *
+// B[16 x 32] (shared; kTransB 1: MN-major, 0: K-major), fp32 sums; scale_d
+// 0 overwrites D
+template <int kTransB, int kTransA = 0>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
+}
+
+// D[64 x 64] += A[64 x 16] (shared; kTransA 0: K-major, 1: M-major) *
+// B[16 x 64] (shared; kTransB 1: MN-major, 0: K-major), fp32 sums; scale_d
+// 0 overwrites D
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d = 1) {
   asm volatile(
@@ -195,7 +227,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -204,12 +236,13 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
-// D[64 x 128] += A[64 x 16] (shared, K-major) * B[16 x 128] (shared; kTransB
-// 1: MN-major, 0: K-major), fp32 sums; scale_d 0 overwrites D
-template <int kTransB>
+// D[64 x 128] += A[64 x 16] (shared; kTransA 0: K-major, 1: M-major) *
+// B[16 x 128] (shared; kTransB 1: MN-major, 0: K-major), fp32 sums; scale_d
+// 0 overwrites D
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                           uint64_t db, int scale_d = 1) {
   asm volatile(
@@ -224,7 +257,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -241,12 +274,13 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
-// D[64 x 256] += A[64 x 16] (shared, K-major) * B[16 x 256] (shared; kTransB
-// 1: MN-major, 0: K-major), fp32 sums; scale_d 0 overwrites D
-template <int kTransB>
+// D[64 x 256] += A[64 x 16] (shared; kTransA 0: K-major, 1: M-major) *
+// B[16 x 256] (shared; kTransB 1: MN-major, 0: K-major), fp32 sums; scale_d
+// 0 overwrites D
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                           uint64_t db, int scale_d = 1) {
   asm volatile(
@@ -269,7 +303,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -302,7 +336,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 // D[64 x 64] += A[64 x 16] (registers: the bf16 pairs of the m64k16

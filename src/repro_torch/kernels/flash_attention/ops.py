@@ -23,13 +23,19 @@ Under autograd (grad enabled and q, k or v requiring it) the call goes
 through ``FlashAttentionFn``: the forward is the call above, and where
 ``saves_lse`` holds (fp32 on the ``rows`` route: the training path) it also
 keeps each row's log-sum-exp, saved with the output for the backward.  The
-backward is ``flash_attention_bwd``, which launches the kernels of
-``csrc/flash_attention_bwd.cu`` on a CUDA device, or raises: on its
-``saved`` route (the output and log-sum-exp given) D from the output, then
-dq, then dk and dv; on its ``recompute`` route (bf16, a direct call) the
-log-sum-exp, output and D rows recomputed first.  It counts once as
-``flash_attention_bwd`` and once as ``flash_attention_bwd.saved`` or
-``.recompute``.  On the CPU it runs the plain version
+backward is ``flash_attention_bwd``, which launches the kernels of one of
+three routes on a CUDA device, or raises; ``bwd_route`` names the route a
+call's operands take, from dtype, shape and alignment alone: ``"tc"`` for
+the bf16 operands the forward's ``tc`` route takes
+(``csrc/flash_attention_bwd_tc.cu``: TMA and wgmma, bf16 in and out, fp32
+sums; each row's log-sum-exp and D = rowsum(P dP) formed first, then dq,
+then dk and dv); otherwise the fp32 kernels of
+``csrc/flash_attention_bwd.cu`` (bf16 operands cast), on the ``saved``
+route where the forward's output and log-sum-exp are given (D from the
+output, then dq, then dk and dv) and the ``recompute`` route where they
+are not (the log-sum-exp, output and D rows recomputed first).  It counts
+once as ``flash_attention_bwd`` and once as ``flash_attention_bwd.tc``,
+``.saved`` or ``.recompute``.  On the CPU it runs the plain version
 (``ref.flash_attention_bwd_ref``: the closed form the kernels compute when
 given the output and log-sum-exp, else autograd through the plain
 forward, which is what ``FlashAttentionFn`` takes there).  On the meta
@@ -52,6 +58,7 @@ NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_NAME = "flash_attention_bwd"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+BWD_TC_SOURCE = SOURCE.with_name("flash_attention_bwd_tc.cu")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_WINDOW = 1 << 30
@@ -78,6 +85,15 @@ def _kernel_fn(which: str):
     return fn
 
 
+def _tc_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """bf16 with head_dim 64 or 128, G dividing ``TC_ROWS`` and 16-byte
+    aligned bases: what TMA and the wgmma tiles take."""
+    G, hd = q.shape[3:]
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and hd in TC_HEAD_DIMS and TC_ROWS % G == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"split"`` for at most ``SPLIT_ROWS`` query rows per kv head
     (``Sq * G``: every decode tick) with head_dim a multiple of 32;
@@ -88,22 +104,37 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     _, Sq, _, G, hd = q.shape
     if Sq * G <= SPLIT_ROWS and hd % 32 == 0:
         return "split"
-    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and hd in TC_HEAD_DIMS and TC_ROWS % G == 0
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+    if _tc_operands(q, k, v):
         return "tc"
     return "rows"
 
 
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward's route for these operands: ``"tc"`` for the bf16
+    operands the forward's ``tc`` route takes (any Sq); ``"saved"`` for
+    fp32 on the forward's ``rows`` route, which keeps the output's
+    log-sum-exp under autograd (the training path); ``"recompute"``
+    otherwise (bf16 at head_dim 16 or 32, G not dividing 128, unaligned
+    bases; fp32 decode rows).  A direct ``flash_attention_bwd`` call off
+    the ``tc`` route takes ``saved`` only when given the output and
+    log-sum-exp.  Reads only dtype, shape and ``data_ptr``, so it decides
+    on any device."""
+    if _tc_operands(q, k, v):
+        return "tc"
+    if q.dtype == torch.float32 and route(q, k, v) == "rows":
+        return "saved"
+    return "recompute"
+
+
 def saves_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether ``FlashAttentionFn`` keeps each row's log-sum-exp for the
-    backward kernel's ``saved`` route: fp32 on the ``rows`` route of a CUDA
-    device (the training path).  bf16 keeps none: its rounded output would
-    give D = rowsum(dout * o) an error that dq = P (dP - D) k does not
-    cancel.  The CPU keeps none either: its backward is autograd through
-    the plain forward, which needs no statistics."""
-    return (q.device.type == "cuda" and q.dtype == torch.float32
-            and route(q, k, v) == "rows")
+    backward kernel's ``saved`` route: where ``bwd_route`` says ``saved``
+    on a CUDA device (fp32 on the ``rows`` route: the training path).
+    bf16 keeps none: its rounded output would give D = rowsum(dout * o) an
+    error that dq = P (dP - D) k does not cancel, so its ``tc`` backward
+    forms D from P and dP itself.  The CPU keeps none either: its backward
+    is autograd through the plain forward, which needs no statistics."""
+    return q.device.type == "cuda" and bwd_route(q, k, v) == "saved"
 
 
 def _check(q, k, v):
@@ -283,6 +314,17 @@ def _bwd_kernel_fn():
     return fn
 
 
+def _bwd_tc_kernel_fn():
+    fn = _build.load(BWD_TC_SOURCE).flash_attention_bwd_tc
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, dout, q_start, kv_len, dq, dk, dv, lse, dsum, then B,
+        # Sq, Skv, Kh, G, hd, window, softcap
+        fn.argtypes = [p] * 11 + [i] * 7 + [f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, q_start, kv_len, *,
                         window: int | None = None,
@@ -291,21 +333,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: torch.Tensor | None = None):
     """The gradients ``(dq, dk, dv)`` of ``flash_attention`` at (q, k, v)
     for the output gradient ``dout`` (``[B, Sq, Kh, G, hd]``), in q.dtype.
-    With the forward's ``out`` and ``lse`` (``flash_attention_lse``) the
-    ``saved`` route reads them; without, the ``recompute`` route
-    recomputes both in fp32 (bf16's output is rounded).  The kernels work
-    in fp32: bf16 operands are cast to fp32 and the gradients back.  On a
-    CUDA device it launches the backward kernels on the current stream
-    (built with nvcc at first use), or raises; on the CPU it runs the plain
-    version."""
+    On the ``tc`` route (``bwd_route``) the kernels read the bf16 operands
+    and write bf16 gradients, forming each row's statistics themselves
+    (``out`` and ``lse``, if given, are not read).  Otherwise, with the
+    forward's ``out`` and ``lse`` (``flash_attention_lse``) the ``saved``
+    route reads them; without, the ``recompute`` route recomputes both in
+    fp32 (bf16's output is rounded); those kernels work in fp32: bf16
+    operands are cast to fp32 and the gradients back.  On a CUDA device it
+    launches the route's kernels on the current stream (built with nvcc at
+    first use), or raises; on the CPU it runs the plain version."""
     _check(q, k, v)
     _check_options(window, softcap)
     if dout.shape != q.shape or dout.device != q.device:
         raise ValueError(f"{BWD_NAME}: dout {tuple(dout.shape)} on "
                          f"{dout.device} does not fit q {tuple(q.shape)}")
     B, Sq, Kh, G, hd = q.shape
-    which = "saved" if out is not None and lse is not None else "recompute"
-    if which == "saved":
+    given = out is not None and lse is not None
+    if given:
         if out.shape != q.shape or out.device != q.device:
             raise ValueError(f"{BWD_NAME}: out {tuple(out.shape)} on "
                              f"{out.device} does not fit q "
@@ -343,6 +387,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{BWD_NAME}: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{BWD_NAME}: {name} is not 16-byte aligned")
+    if bwd_route(q, k, v) == "tc":
+        return _bwd_tc(q, k, v, dout, q_start, kv_len, window, softcap)
+    which = "saved" if given else "recompute"
     # the kernels read contiguous fp32 rows: autograd's output gradient may
     # be strided or of another dtype (it is taken in q's, as on the CPU),
     # and bf16 operands are widened
@@ -380,3 +427,41 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     count_launch(BWD_NAME)
     count_launch(f"{BWD_NAME}.{which}")
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _bwd_tc(q, k, v, dout, q_start, kv_len, window, softcap):
+    """The ``tc`` route on checked CUDA operands: bf16 gradients from the
+    three kernels of ``csrc/flash_attention_bwd_tc.cu``, whose fp32
+    scratch holds each row's log-sum-exp and D, ``[B, Kh, R_pad]`` each
+    (R = Sq * G rounded up to the kernels' 128-row blocks)."""
+    B, Sq, Kh, G, hd = q.shape
+    Skv = k.shape[1]
+    device = q.device
+    # autograd's output gradient may be strided, of another dtype, or a view
+    # off TMA's 16-byte alignment
+    do = dout.to(q.dtype).contiguous()
+    if do.data_ptr() % 16:
+        do = do.clone()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    starts = per_batch(q_start, B, device).contiguous()
+    lens = per_batch(kv_len, B, device).contiguous()
+    r_pad = -(-Sq * G // TC_ROWS) * TC_ROWS
+    stats = torch.empty(2 * B * Kh * r_pad, dtype=torch.float32,
+                        device=device)
+    fn = _bwd_tc_kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 starts.data_ptr(), lens.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                 stats[B * Kh * r_pad:].data_ptr(), B, Sq, Skv, Kh, G, hd,
+                 _NO_WINDOW if window is None else int(window),
+                 0.0 if softcap is None else float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_NAME}: tc kernel launch failed with CUDA "
+                           f"error {err}")
+    count_launch(BWD_NAME)
+    count_launch(f"{BWD_NAME}.tc")
+    return dq, dk, dv

@@ -13,20 +13,26 @@
 //
 // Two routes, chosen by the wrapper before launch (ops.py::route):
 //
-// * gmm_kernel_tc (bf16; K and N multiples of 8; 16-byte aligned bases):
-//   tensor cores through wgmma, fed by TMA.  A block owns one output tile
-//   of one expert.  One producer thread issues TMA loads of the x tile
-//   [BM x 64] and of the w tile [64 x BN] (BN/64 boxes of 64 columns) into
-//   a ring of stages in dynamic shared memory, with a full and an empty
-//   mbarrier per stage; one or two consumer warpgroups (64 rows each) run
-//   wgmma.m64nBNk16 on the stages that have arrived, keeping one group of
-//   products in flight.  Both tiles use the 128-byte swizzle: x is K-major
-//   (the A operand), w is [K, N] with N contiguous, so B is MN-major and
-//   the instruction's B-transpose bit is set.  The tensor maps are 3-D
-//   (inner, rows, G): rows past M, columns past N and K past its end are
-//   zero-filled, and no tile reads the next expert.  Blocks run the row
-//   tiles of one (g, column tile) next to each other, so w is read from
-//   device memory about once and from L2 by the other row tiles.
+// * gmm_kernel_tc (bf16; each stored inner dimension a multiple of 8, N
+//   even, 16-byte aligned bases): tensor cores through wgmma, fed by TMA.
+//   A block owns one output tile of one expert.  One producer thread
+//   issues TMA loads of the x tile [BM x 64] and of the w tile [64 x BN]
+//   into a ring of stages in dynamic shared memory, with a full and an
+//   empty mbarrier per stage; one or two consumer warpgroups (64 rows
+//   each) run wgmma.m64nBNk16 on the stages that have arrived, keeping one
+//   group of products in flight.  Both tiles use the 128-byte swizzle.
+//   Layout flags read the backward's operands in place, each tile in the
+//   layout it is stored in: x stored [G, M, K] is K-major (the A operand;
+//   boxes of BM rows x 64 K), stored [G, K, M] (trans_x: dw = x^T dy)
+//   M-major (BM / 64 boxes of 64 K rows x 64 M, the instruction's
+//   A-transpose bit set); w stored [G, K, N] is MN-major (BN / 64 boxes of
+//   64 K rows x 64 N, the B-transpose bit set), stored [G, N, K] (trans_w:
+//   dx = dy w^T) K-major (one box of BN rows x 64 K).  No transposed copy
+//   is made.  The tensor maps are 3-D (inner, rows, G) over the stored
+//   layout: rows and columns past M, N and K are zero-filled, and no tile
+//   reads the next expert.  Blocks run the row tiles of one (g, column
+//   tile) next to each other, so w is read from device memory about once
+//   and from L2 by the other row tiles.
 //   M > 64 (prefill): BM = 128, BN = 256, 4 stages, one block per SM
 //   (x is read once per column tile, so the wider tile moves fewer bytes
 //   from L2 than BN = 128 did, and ran faster on the serving shapes).
@@ -68,9 +74,6 @@
 namespace {
 
 using namespace hopper;
-
-// the wgmma B-transpose immediate: 1 reads w's [K, N] tile as MN-major
-constexpr int kTransB = 1;
 
 // ------------------------------------------- scalar route (gmm_kernel_simt)
 
@@ -359,8 +362,10 @@ struct TcShape {
 
 // Block b owns row tile b % m_tiles of column tile (b / m_tiles) % n_tiles
 // of expert b / (m_tiles * n_tiles).  Warpgroups 0 .. kWG-1 consume,
-// warpgroup kWG produces (one thread; the others leave at once).
-template <int kWG, int kTileN, int kStages>
+// warpgroup kWG produces (one thread; the others leave at once).  TX: x
+// stored [G, K, M]; TW: w stored [G, N, K].  Either way a stage holds
+// warpgroup i's 64 rows of A at byte 8 KB i and B after A.
+template <int kWG, int kTileN, int kStages, bool TX, bool TW>
 __global__ void __launch_bounds__(128 * (kWG + 1), kWG == 1 ? 2 : 1)
 gmm_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
               const __grid_constant__ CUtensorMap tm_w,
@@ -393,18 +398,34 @@ gmm_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
   if (wg == kWG) {
     if (t == 0) {
       // w boxes that hold a column below N; a box wholly past N is not
-      // loaded (it would feed only output columns that are not stored)
+      // loaded (it would feed only output columns that are not stored).
+      // Stored [N, K], w's tile is one box of kTileN rows, zero-filled
+      // past N.
       const int boxes = min(S::kBoxes, (N - n0 + 63) / 64);
-      const uint32_t bytes = S::kABytes + boxes * kBox;
+      // stored [K, M], x's tile is a box of 64 M columns a warpgroup; one
+      // wholly past M is not loaded either (its rows are not stored)
+      const int x_boxes = TX ? min(kWG, (M - m0 + 63) / 64) : kWG;
+      const uint32_t bytes =
+          x_boxes * kBox + (TW ? S::kBoxes : boxes) * kBox;
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
         const uint32_t a = ring + s * S::kStageBytes;
         mbar_expect_tx(&full[s], bytes);
-        tma_load_3d(a, &tm_x, &full[s], kt * kTcBK, m0, g);
-        for (int j = 0; j < boxes; ++j) {
-          tma_load_3d(a + S::kABytes + j * kBox, &tm_w, &full[s],
-                      n0 + j * 64, kt * kTcBK, g);
+        if constexpr (TX) {
+          for (int i = 0; i < x_boxes; ++i)
+            tma_load_3d(a + i * kBox, &tm_x, &full[s], m0 + 64 * i,
+                        kt * kTcBK, g);
+        } else {
+          tma_load_3d(a, &tm_x, &full[s], kt * kTcBK, m0, g);
+        }
+        if constexpr (TW) {
+          tma_load_3d(a + S::kABytes, &tm_w, &full[s], kt * kTcBK, n0, g);
+        } else {
+          for (int j = 0; j < boxes; ++j) {
+            tma_load_3d(a + S::kABytes + j * kBox, &tm_w, &full[s],
+                        n0 + j * 64, kt * kTcBK, g);
+          }
         }
       }
     }
@@ -426,17 +447,20 @@ gmm_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk) {
-      // A: K-major, 8-row groups 1 KB apart; 16 K values are 32 bytes of
-      // the swizzled row.  B: MN-major, 64-column boxes 8 KB apart (the
+      // K-major (A from x [M, K], B from w [N, K]): 8-row groups 1 KB
+      // apart; 16 K values are 32 bytes of the swizzled row.  MN-major (A
+      // from x [K, M], B from w [K, N]): 64-column boxes 8 KB apart (the
       // leading offset), 8-row K groups 1 KB apart; 16 K rows are 2 KB.
-      const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
-      const uint64_t db = smem_desc(bt + kk * 16 * kRow, kBox, 1024);
+      const uint64_t da = TX ? smem_desc(a + kk * 16 * kRow, kBox, 1024)
+                             : smem_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = TW ? smem_desc(bt + kk * 32, 16, 1024)
+                             : smem_desc(bt + kk * 16 * kRow, kBox, 1024);
       if constexpr (kTileN == 256) {
-        wgmma_n256<kTransB>(acc, da, db);
+        wgmma_n256<TW ? 0 : 1, TX ? 1 : 0>(acc, da, db);
       } else if constexpr (kTileN == 128) {
-        wgmma_n128<kTransB>(acc, da, db);
+        wgmma_n128<TW ? 0 : 1, TX ? 1 : 0>(acc, da, db);
       } else {
-        wgmma_n64<kTransB>(acc, da, db);
+        wgmma_n64<TW ? 0 : 1, TX ? 1 : 0>(acc, da, db);
       }
     }
     wgmma_commit();
@@ -461,7 +485,7 @@ gmm_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
   for (int j = 0; j < kTileN / 8; ++j) {
     const int col = n0 + j * 8 + (lane % 4) * 2;
-    if (col >= N) continue;     // N % 8 == 0: col + 1 < N as well
+    if (col >= N) continue;     // N even: col + 1 < N as well
     if (r0 < M) {
       *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r0 * N + col) =
           __floats2bfloat162_rn(acc[j * 4], acc[j * 4 + 1]);
@@ -473,8 +497,9 @@ gmm_kernel_tc(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// A bf16 [G, rows, inner] tensor (inner contiguous) as a 3-D tensor map of
-// boxes [1, box_rows, 64] with the 128-byte swizzle and zero fill.
+// A bf16 [G, rows, inner] tensor (inner contiguous, a multiple of 8) as a
+// 3-D tensor map of boxes [1, box_rows, 64] with the 128-byte swizzle and
+// zero fill.
 bool encode_3d(CUtensorMap* map, const void* ptr, int inner, int rows, int G,
                int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
@@ -485,26 +510,38 @@ bool encode_3d(CUtensorMap* map, const void* ptr, int inner, int rows, int G,
   return encode_bf16(map, ptr, 3, dims, strides, box);
 }
 
-template <int kWG, int kTileN, int kStages>
+// x's map: [G, M, K] in boxes of BM rows, or stored [G, K, M] in boxes of
+// 64 K rows x 64 M; w's: [G, K, N] in boxes of 64 K rows x 64 N, or stored
+// [G, N, K] in boxes of BN rows.
+template <int kWG, int kTileN, int kStages, bool TX, bool TW>
 int launch_tc(const void* x, const void* w, void* out, int G, int M, int K,
               int N, cudaStream_t stream) {
   using S = TcShape<kWG, kTileN, kStages>;
   CUtensorMap tm_x, tm_w;
-  if (!encode_3d(&tm_x, x, K, M, G, S::kRows) ||
-      !encode_3d(&tm_w, w, N, K, G, 64)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  const bool ok_x = TX ? encode_3d(&tm_x, x, M, K, G, 64)
+                       : encode_3d(&tm_x, x, K, M, G, S::kRows);
+  const bool ok_w = TW ? encode_3d(&tm_w, w, K, N, G, kTileN)
+                       : encode_3d(&tm_w, w, N, K, G, 64);
+  if (!ok_x || !ok_w) return (int)cudaErrorInvalidValue;
   const int m_tiles = (M + S::kRows - 1) / S::kRows;
   const int n_tiles = (N + kTileN - 1) / kTileN;
   const long long blocks = (long long)G * m_tiles * n_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = gmm_kernel_tc<kWG, kTileN, kStages>;
+  auto kernel = gmm_kernel_tc<kWG, kTileN, kStages, TX, TW>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, S::kThreads, S::kSmem, stream>>>(
       tm_x, tm_w, (__nv_bfloat16*)out, M, K, N, m_tiles, n_tiles);
   return (int)cudaGetLastError();
+}
+
+// M <= 64 (decode): 64 x 64 tiles, 6 stages; else 128 x 256, 4 stages
+template <bool TX, bool TW>
+int launch_tc_shape(const void* x, const void* w, void* out, int G, int M,
+                    int K, int N, cudaStream_t s) {
+  if (M <= 64) return launch_tc<1, 64, 6, TX, TW>(x, w, out, G, M, K, N, s);
+  return launch_tc<2, 256, 4, TX, TW>(x, w, out, G, M, K, N, s);
 }
 
 }  // namespace
@@ -540,16 +577,23 @@ extern "C" int grouped_matmul(const void* x, const void* w, void* out,
 
 // The tensor-core route, bf16 only: launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for what TMA
-// cannot take (K or N not a multiple of 8, K = 0, a base not 16-byte
-// aligned), a tensor map cuTensorMapEncodeTiled refuses or a grid too
-// large.
+// cannot take (a stored inner dimension not a multiple of 8: K or, with
+// trans_x, M of x; N or, with trans_w, K of w; K = 0; N odd; a base not
+// 16-byte aligned), a tensor map cuTensorMapEncodeTiled refuses or a grid
+// too large.  x is [G, M, K] ([G, K, M] with trans_x), w [G, K, N] ([G,
+// N, K] with trans_w), out [G, M, N], all contiguous device memory.
 extern "C" int grouped_matmul_tc(const void* x, const void* w, void* out,
-                                 int G, int M, int K, int N, void* stream) {
+                                 int G, int M, int K, int N, int trans_x,
+                                 int trans_w, void* stream) {
   if (G <= 0 || M <= 0 || N <= 0) return 0;
-  if (K <= 0 || K % 8 || N % 8 || (uintptr_t)x % 16 || (uintptr_t)w % 16) {
+  if (K <= 0 || (trans_x ? M : K) % 8 || (trans_w ? K : N) % 8 || N % 2 ||
+      (uintptr_t)x % 16 || (uintptr_t)w % 16) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 64) return launch_tc<1, 64, 6>(x, w, out, G, M, K, N, s);
-  return launch_tc<2, 256, 4>(x, w, out, G, M, K, N, s);
+  if (trans_x && trans_w)
+    return launch_tc_shape<true, true>(x, w, out, G, M, K, N, s);
+  if (trans_x) return launch_tc_shape<true, false>(x, w, out, G, M, K, N, s);
+  if (trans_w) return launch_tc_shape<false, true>(x, w, out, G, M, K, N, s);
+  return launch_tc_shape<false, false>(x, w, out, G, M, K, N, s);
 }

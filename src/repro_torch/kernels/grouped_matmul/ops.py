@@ -8,11 +8,10 @@ it launches one of the two kernels in ``csrc/grouped_matmul.cu`` (built
 with nvcc at first use) on the current stream, or raises; it never falls
 back.  ``route`` picks the kernel before the launch, from dtype, shape and
 alignment alone: the tensor-core kernel (``"tc"``: TMA and wgmma) for bf16
-whose rows TMA can address, the scalar kernel (``"simt"``) for the rest,
-which reads both layouts in place, on the output tiles ``simt_tile``
-picks.  The tensor-core kernel takes no layout flags: a
-transposed operand routed there is copied into its logical layout first.
-On the CPU it runs the plain version in ``ref.py``.  On the meta device
+whose stored rows TMA can address, the scalar kernel (``"simt"``) for the
+rest, on the output tiles ``simt_tile`` picks.  Both kernels read either
+layout in place: no call copies an operand.  On the CPU it runs the plain
+version in ``ref.py``.  On the meta device
 (the dry run) it returns an empty output and reports the kernel's work
 (``kernels.report_meta``: 2 G M K N flops, x and w read and the output
 written once).
@@ -52,8 +51,8 @@ def _kernel_fn(route_name: str):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         if route_name == "tc":
-            # x, w, out, G, M, K, N
-            fn.argtypes = [p, p, p, i, i, i, i, p]
+            # x, w, out, G, M, K, N, trans_x, trans_w
+            fn.argtypes = [p] * 3 + [i] * 6 + [p]
         else:
             # x, w, out, G, M, K, N, trans_x, trans_w, tile_m, vec, dtype
             fn.argtypes = [p] * 3 + [i] * 9 + [p]
@@ -61,15 +60,21 @@ def _kernel_fn(route_name: str):
     return fn
 
 
-def route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """``"tc"`` where TMA can address both operands: bf16, K and N
-    multiples of 8 (rows of 16-byte multiples), K > 0 and both bases
-    16-byte aligned; ``"simt"`` otherwise (fp32 included: the reference
-    sums in full fp32, so TF32 tensor cores are not used).  Reads only
-    dtype, shape and ``data_ptr``, so it decides on any device."""
-    K, N = x.shape[2], w.shape[2]
+def route(x: torch.Tensor, w: torch.Tensor, trans_x: bool = False,
+          trans_w: bool = False) -> str:
+    """``"tc"`` where TMA can address both operands as they are stored (x
+    ``[G, M, K]``, or ``[G, K, M]`` with ``trans_x``; w ``[G, K, N]``, or
+    ``[G, N, K]`` with ``trans_w``): bf16, each stored inner dimension a
+    multiple of 8 (rows of 16-byte multiples: K or M of x, N or K of w), K
+    > 0, N even (the output's paired stores) and both bases 16-byte
+    aligned; ``"simt"`` otherwise (fp32 included: the reference sums in
+    full fp32, so TF32 tensor cores are not used).  Reads only dtype,
+    shape and ``data_ptr``, so it decides on any device."""
+    K = x.shape[1] if trans_x else x.shape[2]
+    N = w.shape[1] if trans_w else w.shape[2]
     if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
-            and K > 0 and K % 8 == 0 and N % 8 == 0
+            and K > 0 and x.shape[2] % 8 == 0 and w.shape[2] % 8 == 0
+            and N % 2 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
         return "tc"
     return "simt"
@@ -166,13 +171,10 @@ def _grouped_matmul(x: torch.Tensor, w: torch.Tensor, trans_x: bool = False,
     out = torch.empty((G, M, N), dtype=x.dtype, device=device)
     if out.numel() == 0:
         return out
-    # the logical operands (views: the same bases) decide the route
-    xl = x.transpose(1, 2) if trans_x else x
-    wl = w.transpose(1, 2) if trans_w else w
-    which = route(xl, wl)
+    which = route(x, w, trans_x, trans_w)
     if which == "tc":
-        xl, wl = xl.contiguous(), wl.contiguous()
-        args = [xl.data_ptr(), wl.data_ptr(), out.data_ptr(), G, M, K, N]
+        args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, K, N,
+                int(trans_x), int(trans_w)]
     else:
         vec = (x.dtype == torch.float32 and M % 4 == K % 4 == N % 4 == 0
                and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)

@@ -56,10 +56,11 @@ def test_system_includes_and_missing_files_are_left_to_the_compiler(
 def test_both_tensor_core_kernels_include_the_shared_header():
     header = (_build.KERNELS_DIR / "_hopper" / "hopper.cuh").resolve()
     sources = {s.stem: s for s in _build.KERNELS_DIR.glob("*/csrc/*.cu")}
-    # the header is not a kernel source; K2's and K4's backward are
-    # sources of their own
-    assert len(sources) == 6
-    for name in ("flash_attention", "grouped_matmul"):
+    # the header is not a kernel source; K2's backward (its fp32 kernels and
+    # its tensor-core route) and K4's backward are sources of their own
+    assert len(sources) == 7
+    for name in ("flash_attention", "grouped_matmul",
+                 "flash_attention_bwd_tc"):
         assert header in _build.local_headers(sources[name])
 
 

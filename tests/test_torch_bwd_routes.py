@@ -9,6 +9,10 @@ inputs:
   closed form of the kernels' ``saved`` route) against the call without
   them and against ``jax.vjp`` of the reference's ``_block_attention``
   (2e-3, PR 21's tolerance);
+- ``bwd_route``, which sends a backward call to the ``tc`` kernels, the
+  ``saved`` or the ``recompute`` route from dtype, shape and alignment
+  alone, and the plain bf16 backward (what the ``tc`` route computes)
+  against ``jax.vjp`` of ``_block_attention`` in bf16 (2e-2);
 - the plain grouped matmul's layout flags against explicit transposes,
   and ``GroupedMatmulFn``'s gradients with each flag against ``jax.vjp``
   of the reference's ``grouped_matmul_ref`` (1e-4);
@@ -25,7 +29,9 @@ import torch
 
 from repro.kernels.grouped_matmul.ref import grouped_matmul_ref as jax_gmm
 from repro.models import transformer as jt
-from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+from repro_torch.kernels.flash_attention.ops import (bwd_route,
+                                                     flash_attention_bwd,
+                                                     route, saves_lse)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grouped_matmul.ops import (grouped_matmul,
                                                     simt_tile)
@@ -129,6 +135,117 @@ def test_saved_route_matches_jax_vjp(case):
     for g, r, n in zip(got, want, "qkv"):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-3,
                                    atol=2e-3, err_msg=f"d{n}")
+
+
+def _attn_operands(B, Sq, Skv, Kh, G, hd, dtype, q_shift=0, k_shift=0):
+    """q ``[B, Sq, Kh, G, hd]``, k and v ``[B, Skv, Kh, hd]`` on the CPU, q
+    and k viewed ``shift`` elements into a larger buffer (a shift of 1 bf16
+    element puts the base 2 bytes off 16-byte alignment)."""
+    def view(shape, shift):
+        n = math.prod(shape)
+        return torch.zeros(n + 8, dtype=dtype)[shift:shift + n].view(shape)
+    return (view((B, Sq, Kh, G, hd), q_shift),
+            view((B, Skv, Kh, hd), k_shift), view((B, Skv, Kh, hd), 0))
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Kh,G,hd,dtype,q_shift,k_shift,want", [
+    (2, 4096, 4096, 16, 1, 128, BF, 0, 0, "tc"),    # OLMoE's layer 0
+    (8, 1024, 1024, 12, 1, 64, BF, 0, 0, "tc"),     # lm100m in bf16
+    (2, 300, 300, 1, 2, 128, BF, 0, 0, "tc"),       # Gemma 2's G 2
+    (1, 40, 90, 2, 8, 64, BF, 0, 0, "tc"),          # G 8
+    (1, 4, 16, 1, 128, 64, BF, 0, 0, "tc"),         # G 128
+    (3, 1, 700, 4, 2, 128, BF, 0, 0, "tc"),         # a decode row
+    (2, 64, 64, 2, 1, 32, BF, 0, 0, "recompute"),   # head_dim 32
+    (2, 64, 64, 2, 4, 16, BF, 0, 0, "recompute"),   # head_dim 16
+    (2, 64, 64, 2, 3, 64, BF, 0, 0, "recompute"),   # G 3
+    (2, 64, 64, 2, 5, 128, BF, 0, 0, "recompute"),  # G 5
+    (2, 64, 64, 2, 1, 64, BF, 1, 0, "recompute"),   # q base + 2 B
+    (2, 64, 64, 2, 1, 64, BF, 0, 1, "recompute"),   # k base + 2 B
+    (2, 64, 64, 2, 1, 64, BF, 8, 8, "tc"),          # + 16 B
+    (8, 1024, 1024, 12, 1, 64, F32, 0, 0, "saved"),  # lm100m in fp32
+    (16, 1024, 1024, 8, 1, 32, F32, 0, 0, "saved"),  # lm-moe
+    (3, 1, 700, 4, 2, 128, F32, 0, 0, "recompute"),  # fp32 decode row
+    (2, 64, 64, 2, 1, 64, torch.float16, 0, 0, "recompute"),
+])
+def test_bwd_route_decides_from_dtype_shape_and_alignment(
+        B, Sq, Skv, Kh, G, hd, dtype, q_shift, k_shift, want):
+    """``tc`` wherever the forward's ``tc`` tests hold (bf16, head_dim 64
+    or 128, G dividing 128, 16-byte aligned bases; any Sq), ``saved`` for
+    fp32 on the forward's ``rows`` route, ``recompute`` otherwise; on CPU
+    tensors, which keep no log-sum-exp."""
+    q, k, v = _attn_operands(B, Sq, Skv, Kh, G, hd, dtype, q_shift, k_shift)
+    assert bwd_route(q, k, v) == want == bwd_route(q, k, v)
+    if route(q, k, v) == "tc":
+        assert want == "tc"
+    assert not saves_lse(q, k, v)
+
+
+# (B, Sq, Skv, Kh, G, hd, q_start, kv_len, window, softcap): head_dim 64,
+# the shapes the tc route takes on the card
+BF16_CASES = {
+    "g1": (2, 24, 24, 2, 1, 64, [0, 0], [24, 24], None, None),
+    "g2": (2, 13, 13, 1, 2, 64, [0, 0], [13, 13], None, None),
+    "g4_chunk_q_start": (2, 5, 20, 1, 4, 64, [3, 12], [8, 17], None, None),
+    "window_softcap_g2": (2, 13, 13, 1, 2, 64, [0, 0], [13, 13], 4, 3.0),
+    # batch 1's rows at 2 and 3 see keys; those at 4..7 none (kv_len 3,
+    # window 2)
+    "rows_with_no_key": (2, 6, 10, 1, 2, 64, [0, 2], [6, 3], 2, None),
+}
+
+
+def _sees_no_key(qs, kl, Sq, G, window):
+    """``[B, Sq, 1, G, 1]``: the query rows that see no key."""
+    pos = qs[:, None] + np.arange(Sq)                       # [B, Sq]
+    lo = pos - (window if window is not None else 1 << 30) + 1
+    hi = np.minimum(pos, kl[:, None] - 1)
+    return np.broadcast_to((hi < np.maximum(lo, 0))[:, :, None, None, None],
+                           (len(qs), Sq, 1, G, 1))
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_plain_bf16_backward_matches_jax_vjp(case):
+    """The plain bf16 backward (what the card's ``tc`` kernels compute; on
+    the CPU ``flash_attention_bwd`` runs it) against ``jax.vjp`` of the
+    reference's ``_block_attention`` on the same bf16 inputs, 2e-2.  The
+    reference gives a row that sees no key the mean of v (its running max
+    stays at -1e30, so every masked score weighs 1), the port 0: so the
+    output gradient of those rows is 0 in the comparison, and the port's
+    own gradients with it left nonzero are finite with dq 0 there."""
+    B, Sq, Skv, Kh, G, hd, qs, kl, window, cap = BF16_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, dout = (rng.normal(size=(B, Sq, Kh, G, hd)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.normal(size=(B, Skv, Kh, hd)).astype(np.float32)
+            for _ in range(2))
+    qs, kl = np.array(qs, np.int32), np.array(kl, np.int32)
+    empty = _sees_no_key(qs, kl, Sq, G, window)
+    assert empty.any() == (case == "rows_with_no_key")
+    dout_seen = np.where(empty, 0.0, dout).astype(np.float32)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    _, vjp = jax.vjp(
+        lambda a, b, c: jt._block_attention(
+            a, b, c, _attn_cfg(window, cap), jnp.asarray(qs),
+            jnp.asarray(kl), is_local=jnp.asarray(window is not None)),
+        *bf)
+    want = vjp(jnp.asarray(dout_seen, jnp.bfloat16))
+    qt, kt, vt, dt, st, lt = _torch_args(q, k, v, dout_seen, qs, kl)
+    qt, kt, vt, dt = (t.to(torch.bfloat16) for t in (qt, kt, vt, dt))
+    assert bwd_route(qt, kt, vt) == "tc"
+    kw = {"window": window, "softcap": cap}
+    got = flash_attention_bwd(qt, kt, vt, dt, st, lt, **kw)
+    for g, r, n in zip(got, want, "qkv"):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, np.float32), rtol=2e-2,
+                                   atol=2e-2, err_msg=f"d{n}")
+    full = flash_attention_bwd(qt, kt, vt, torch.tensor(dout).bfloat16(),
+                               st, lt, **kw)
+    assert all(bool(torch.isfinite(g).all()) for g in full)
+    assert not full[0][torch.from_numpy(
+        np.broadcast_to(empty, q.shape).copy())].any()
 
 
 def _gmm_operands(G, M, K, N, seed=0):

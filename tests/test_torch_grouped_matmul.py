@@ -4,7 +4,8 @@ against the reference's Pallas kernel in interpret mode over the
 ``test_grouped_matmul_sweep`` shapes, the ragged one included.
 Tolerances are the reference's: 1e-4 in fp32, 3e-2 in bf16.  ``route``,
 which picks the tensor-core or the scalar kernel before a launch, is held
-to its rules on CPU tensors (it reads only dtype, shape and alignment).
+to its rules on CPU tensors (it reads only dtype, shape, the layout flags
+and alignment).
 The kernels' tests on the card are in ``test_torch_kernels_gpu.py``."""
 import jax.numpy as jnp
 import numpy as np
@@ -99,3 +100,41 @@ def test_route_decides_from_dtype_shape_and_alignment(G, M, K, N, dtype,
     x, w = _operands(G, M, K, N, dtype, x_shift, w_shift)
     assert x.is_contiguous() and w.is_contiguous()
     assert route(x, w) == want
+
+
+def _stored(G, M, K, N, dtype, trans_x, trans_w, x_shift=0):
+    """x stored ``[G, K, M]`` with ``trans_x`` (else ``[G, M, K]``), w
+    ``[G, N, K]`` with ``trans_w`` (else ``[G, K, N]``), x ``x_shift``
+    elements into a larger buffer."""
+    x, w = _operands(G, M, K, N, dtype, x_shift)
+    if trans_x:
+        x = _operands(G, K, M, N, dtype, x_shift)[0]
+    if trans_w:
+        w = _operands(G, N, K, N, dtype)[0]
+    return x, w
+
+
+@pytest.mark.parametrize("G,M,K,N,trans_x,trans_w,x_shift,dtype,want", [
+    (64, 1280, 1024, 2048, False, True, 0, torch.bfloat16, "tc"),   # dx
+    (64, 2048, 1280, 1024, True, False, 0, torch.bfloat16, "tc"),   # dw
+    (3, 136, 72, 200, True, True, 0, torch.bfloat16, "tc"),
+    (2, 16, 60, 64, True, False, 0, torch.bfloat16, "tc"),     # K % 8 != 0
+    (2, 16, 64, 60, False, True, 0, torch.bfloat16, "tc"),     # N % 8 != 0
+    (2, 36, 64, 48, True, False, 0, torch.bfloat16, "simt"),   # M % 8 != 0
+    (2, 64, 36, 48, False, True, 0, torch.bfloat16, "simt"),   # K % 8 != 0
+    (2, 64, 36, 48, True, True, 0, torch.bfloat16, "simt"),    # K % 8 != 0
+    (2, 64, 64, 61, False, True, 0, torch.bfloat16, "simt"),   # N odd
+    (2, 64, 64, 48, True, False, 1, torch.bfloat16, "simt"),   # x + 2 B
+    (2, 64, 64, 48, True, False, 8, torch.bfloat16, "tc"),     # x + 16 B
+    (2, 64, 64, 48, True, True, 0, torch.float32, "simt"),     # fp32
+])
+def test_route_reads_the_stored_layouts(G, M, K, N, trans_x, trans_w,
+                                        x_shift, dtype, want):
+    """With the layout flags ``route`` checks TMA's addressing on the
+    operands as stored: each stored inner dimension a multiple of 8 (M of
+    x stored [K, M], K of w stored [N, K]), N even, 16-byte aligned bases;
+    what fails goes to ``simt``, which reads both layouts in place."""
+    x, w = _stored(G, M, K, N, dtype, trans_x, trans_w, x_shift)
+    assert x.shape == ((G, K, M) if trans_x else (G, M, K))
+    assert w.shape == ((G, N, K) if trans_w else (G, K, N))
+    assert route(x, w, trans_x, trans_w) == want

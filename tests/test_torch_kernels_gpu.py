@@ -1021,8 +1021,9 @@ def test_gnn_smoke_bundle_on_the_card_matches_the_cpu(card, arch, shape):
     "decode", "g4_hd32", "hd16", "hd128_g2", "keys_past_kv_len",
     "hd128_olmoe"])
 def test_attention_backward_kernel_matches_plain_version(card, case, dtype):
-    """``flash_attention_bwd`` on its recompute route (counted once)
-    against autograd through the plain version: causal
+    """``flash_attention_bwd`` on the route ``bwd_route`` picks (fp32 and
+    bf16 at head_dim 16 or 32 on ``recompute``, bf16 at 64 and 128 on
+    ``tc``; counted once) against autograd through the plain version: causal
     prefill (q_start and kv_len as [B] tensors and as ints), a length not a
     multiple of the 64-row tiles, a chunk at q_start > 0, a window with a
     softcap, decode rows, G = 4, head dims 16, 32, 64 and 128, a cache
@@ -1146,9 +1147,9 @@ def test_grouped_matmul_backward_matches_plain_version(card, G, M, K, N,
                                      (3, 40, 64, 72)])
 def test_grouped_matmul_bf16_backward_runs_on_tc(card, G, M, K, N):
     """In bf16 at widths TMA takes, the Function's forward, dx and dw all
-    launch the tensor-core kernel (the transposed operand copied into its
-    logical layout first), and both gradients hold to autograd through
-    the plain version at the reference's bf16 tolerance (3e-2)."""
+    launch the tensor-core kernel (dx reading w, dw reading x in place
+    through the layout flags), and both gradients hold to autograd
+    through the plain version at the reference's bf16 tolerance (3e-2)."""
     x, w = _gmm_operands(card, G, M, K, N, torch.bfloat16)
     dy = _gmm_operands(card, G, M, N, 1, torch.bfloat16)[0]
     before = {k: kernels.LAUNCHES.get(k, 0) for k in (
@@ -1173,9 +1174,9 @@ def test_grouped_matmul_bf16_backward_runs_on_tc(card, G, M, K, N):
 def test_lm_bf16_train_step_on_masters_takes_the_bf16_routes(card):
     """One train step of a small MoE in bf16 on fp32 masters
     (``master=True``) on the card: K2's forward on ``tc`` 2L times (the
-    layer's recompute), its backward L times on ``recompute``, K3 12L
-    times on ``tc``; the loss and gradient norm finite, every master still
-    fp32 and moved; a serving model (bf16 weights) is refused."""
+    layer's recompute), its backward L times on ``tc``, K3 12L times on
+    ``tc``; the loss and gradient norm finite, every master still fp32 and
+    moved; a serving model (bf16 weights) is refused."""
     from repro_torch.models import transformer as tfm
     from repro_torch.train import optimizer as opt
     cfg = tfm.TransformerConfig(
@@ -1197,7 +1198,7 @@ def test_lm_bf16_train_step_on_masters_takes_the_bf16_routes(card):
     L = cfg.n_layers
     assert dict(kernels.LAUNCHES) == {
         "flash_attention": 2 * L, "flash_attention.tc": 2 * L,
-        "flash_attention_bwd": L, "flash_attention_bwd.recompute": L,
+        "flash_attention_bwd": L, "flash_attention_bwd.tc": L,
         "grouped_matmul": 12 * L, "grouped_matmul.tc": 12 * L}
     assert bool(torch.isfinite(m["loss"])) and bool(
         torch.isfinite(m["grad_norm"]))
@@ -1473,6 +1474,216 @@ def test_grouped_matmul_raises_when_the_launch_fails(card, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         gmm_ops.grouped_matmul(x, w)
     assert kernels.LAUNCHES == before
+
+
+# ------------- bf16 training: K2's tc backward, K3 tc with layout flags
+
+def _tc_bwd_case(card, case, hd, seed=0):
+    """bf16 operands of one case of the backward's ``tc`` route: (q, k, v,
+    dout, q_start, kv_len, options), the positions [B] int32 on the
+    card."""
+    g = torch.Generator(device=card).manual_seed(seed + len(case) + hd)
+    B, Sq, Skv, K, G = 2, 200, 200, 2, 1
+    q_start, kv_len, kw = [0, 0], None, {}
+    if case == "g2":
+        G = 2
+    elif case == "g4_ragged":        # R = 308: not a multiple of 64
+        G, Sq, Skv = 4, 77, 77
+    elif case == "g8":
+        G, Sq, Skv, q_start = 8, 40, 90, [50, 0]
+    elif case == "window_softcap50":  # Gemma 2's cap at G 2
+        G, Sq, Skv = 2, 300, 300
+        kw = {"window": 70, "softcap": 50.0}
+    elif case == "softcap5_window1":
+        Sq, Skv, kw = 130, 130, {"window": 1, "softcap": 5.0}
+    elif case == "chunk":
+        Sq, Skv, q_start = 45, 301, [100, 256]
+    elif case == "ragged_tiles":     # one past a 128-row and a 64-key tile
+        Sq, Skv = 129, 193
+    elif case == "short_kv_len":
+        Sq, Skv, kv_len = 150, 333, [150, 97]
+    elif case == "empty_rows":
+        # batch 1's rows sit at 50.. and see no key below its kv_len 20
+        # within the window of 8: zero dq, no NaN
+        Sq, Skv, q_start, kv_len = 70, 90, [0, 50], [70, 20]
+        kw = {"window": 8}
+    elif case == "decode":
+        Sq, Skv, q_start = 1, 300, [17, 255]
+    q_start = torch.tensor(q_start, dtype=torch.int32, device=card)
+    kv_len = (q_start + Sq if kv_len is None
+              else torch.tensor(kv_len, dtype=torch.int32, device=card))
+    q, dout = (torch.randn(B, Sq, K, G, hd, generator=g, device=card)
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, Skv, K, hd, generator=g, device=card)
+            .to(torch.bfloat16) for _ in range(2))
+    return q, k, v, dout, q_start, kv_len, kw
+
+
+TC_BWD_CASES = ["causal", "g2", "g4_ragged", "g8", "window_softcap50",
+                "softcap5_window1", "chunk", "ragged_tiles", "short_kv_len",
+                "empty_rows", "decode"]
+BWD_ROUTES = ("tc", "saved", "recompute")
+
+
+def _past_kv_len(k, kv_len):
+    """``[B, Skv, 1, 1]``: the cache rows at or past each slot's kv_len."""
+    j = torch.arange(k.shape[1], device=k.device)
+    return (j[None] >= kv_len[:, None])[:, :, None, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case", TC_BWD_CASES)
+def test_attention_backward_tc_matches_plain_version(card, case, hd):
+    """The ``tc`` route (counted once, there and in the total, on no other
+    route) against autograd through the plain version (2e-2): G 1, 2, 4
+    and 8, a window with Gemma 2's softcap of 50, a window of 1 with a
+    softcap of 5, a chunk at q_start > 0, lengths one past a tile, kv_len
+    < Skv, rows with no admissible key (dq exactly 0) and one decode row.
+    The cache rows past kv_len hold NaN for the kernel (zeros for the plain
+    version, whose einsum would turn 0 * NaN into NaN): the gradients are
+    finite, and dk, dv are 0 there."""
+    from repro_torch.kernels.flash_attention.ops import (bwd_route,
+                                                         flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    q, k, v, dout, q_start, kv_len, kw = _tc_bwd_case(card, case, hd)
+    assert bwd_route(q, k, v) == "tc"
+    past = _past_kv_len(k, kv_len)
+    nan_k, nan_v = (t.masked_fill(past, float("nan")) for t in (k, v))
+    before = dict(kernels.LAUNCHES)
+    got = flash_attention_bwd(q, nan_k, nan_v, dout, q_start, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0) + 1
+    for r in BWD_ROUTES:
+        name = f"flash_attention_bwd.{r}"
+        assert kernels.LAUNCHES.get(name, 0) == before.get(name, 0) + (
+            r == "tc"), name
+    want = flash_attention_bwd_ref(q, k.masked_fill(past, 0.0),
+                                   v.masked_fill(past, 0.0), dout, q_start,
+                                   kv_len, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                   atol=2e-2)
+    for grad in got[1:]:
+        assert not grad[past.expand_as(grad)].any()
+    if case == "empty_rows":
+        assert not got[0][1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["causal", "window_softcap50",
+                                  "g4_ragged"])
+def test_attention_backward_tc_is_bit_equal_over_two_calls(card, case):
+    """No atomics: the ``tc`` route's gradients are the same bit for bit
+    from call to call (the exact resume of training depends on it)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    q, k, v, dout, q_start, kv_len, kw = _tc_bwd_case(card, case, 128)
+    runs = [flash_attention_bwd(q, k, v, dout, q_start, kv_len, **kw)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_attention_backward_tc_raises_when_the_launch_fails(card,
+                                                            monkeypatch):
+    """A failed ``tc`` launch raises; neither the fp32 kernels nor the
+    plain version are taken, and no launch is counted."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v, dout, q_start, kv_len, kw = _tc_bwd_case(card, "causal", 128)
+    monkeypatch.setattr(fa_ops, "_bwd_tc_kernel_fn",
+                        lambda: (lambda *args: 1))
+    monkeypatch.setattr(fa_ops, "_bwd_kernel_fn", None)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tc kernel launch failed"):
+        fa_ops.flash_attention_bwd(q, k, v, dout, q_start, kv_len, **kw)
+    assert kernels.LAUNCHES == before
+
+
+FLAG_PAIRS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_x,trans_w", FLAG_PAIRS)
+@pytest.mark.parametrize("G,M,K,N", [
+    (3, 136, 72, 200),        # ragged against 128 x 256 tiles and 64 K
+    (2, 40, 520, 88),         # M <= 64: 64 x 64 tiles, ragged K and N
+    (4, 200, 1000, 264),      # a row tile of 8 rows past a whole one
+    (8, 640, 256, 512),       # OLMoE-like dw at 8 experts
+])
+def test_grouped_matmul_tc_layouts_match_plain_version(card, G, M, K, N,
+                                                       trans_x, trans_w):
+    """The tensor-core kernel reading x stored [G, K, M] (trans_x) and w
+    stored [G, N, K] (trans_w) in place, at M, N and K that are not
+    multiples of its tiles, against the plain version (3e-2), one launch
+    counted on ``tc``; the same call twice is equal bit for bit (K is
+    summed in order, never split)."""
+    x, w = _gmm_operands(card, G, M, K, N, torch.bfloat16)
+    xs = x.transpose(1, 2).contiguous() if trans_x else x
+    ws = w.transpose(1, 2).contiguous() if trans_w else w
+    assert route(xs, ws, trans_x, trans_w) == "tc"
+    before = dict(kernels.LAUNCHES)
+    got = grouped_matmul(xs, ws, trans_x=trans_x, trans_w=trans_w)
+    torch.cuda.synchronize()
+    for name, n in (("grouped_matmul", 1), ("grouped_matmul.tc", 1),
+                    ("grouped_matmul.simt", 0)):
+        assert kernels.LAUNCHES.get(name, 0) == before.get(name, 0) + n
+    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert torch.equal(got, grouped_matmul(xs, ws, trans_x=trans_x,
+                                           trans_w=trans_w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_x,trans_w,M,K", [(True, False, 36, 64),
+                                                 (False, True, 64, 36)])
+def test_grouped_matmul_unaligned_stored_inner_takes_simt(card, trans_x,
+                                                          trans_w, M, K):
+    """bf16 whose stored inner dimension (M of x stored [K, M], K of w
+    stored [N, K]) is not a multiple of 8 goes to ``simt``, which reads it
+    in place: no copy, no plain version."""
+    x, w = _gmm_operands(card, 2, M, K, 48, torch.bfloat16)
+    xs = x.transpose(1, 2).contiguous() if trans_x else x
+    ws = w.transpose(1, 2).contiguous() if trans_w else w
+    assert route(xs, ws, trans_x, trans_w) == "simt"
+    before = kernels.LAUNCHES.get("grouped_matmul.simt", 0)
+    got = grouped_matmul(xs, ws, trans_x=trans_x, trans_w=trans_w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grouped_matmul.simt"] == before + 1
+    torch.testing.assert_close(got.float(), grouped_matmul_ref(x, w).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_x,trans_w", FLAG_PAIRS[1:])
+def test_grouped_matmul_tc_flagged_call_allocates_only_its_output(
+        card, trans_x, trans_w):
+    """A flagged ``tc`` call grows the memory it asks the caching
+    allocator for by its output alone, at its peak too: no transposed copy
+    of an operand.  (The bytes requested, not ``memory_allocated``: a
+    cached block less than 1 MB larger than a request is handed out
+    whole.)"""
+    G, M, K, N = 8, 640, 512, 1024
+    x, w = _gmm_operands(card, G, M, K, N, torch.bfloat16)
+    xs = x.transpose(1, 2).contiguous() if trans_x else x
+    ws = w.transpose(1, 2).contiguous() if trans_w else w
+    grouped_matmul(xs, ws, trans_x=trans_x, trans_w=trans_w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def requested(which):
+        return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+    base = requested("current")
+    out = grouped_matmul(xs, ws, trans_x=trans_x, trans_w=trans_w)
+    torch.cuda.synchronize()
+    grown = out.numel() * out.element_size()
+    assert requested("current") - base == grown
+    assert requested("peak") - base == grown
 
 
 # ------------------------------ K4's backward and Wide & Deep training
