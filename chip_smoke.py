@@ -55,6 +55,16 @@ Phases, each printing one JSON line:
              ``device="cuda"`` and ``device="cpu"`` (the plain versions),
              and the fused chains on cuda, the per-hop loop on cuda and the
              fused chains on the cpu give identical rows;
+9b. residency — the host-staging baseline on phase 9's sf=1 store (at
+             sf=100 the staged runs take over 120 s): the reference's
+             ``--residency`` sets (the 8 ``cbo`` and 6 ``ic`` queries)
+             each run warm on the resident cuda set and through
+             ``HostStagingOperators`` over it (host columns; every expand
+             and probe uploads its padded block and downloads the padded
+             result); identical rows, no mid-plan download on the
+             resident set and some on the staged one, every staged K1
+             launch on ``fence``, one a probed slab; both sets' ms and
+             transfers a query;
 10. check  — at sf=1 again, a mutable store after one update script (the
              stream of phase 11, scaled down): the 25 queries and the
              stream's reads give the same plans and rows on cuda and cpu,
@@ -245,8 +255,20 @@ Phases, each printing one JSON line:
              concrete batch); one warm-up and 5 timed steps each (CUDA
              events), every loss and gradient norm finite, every step
              moving the weights, the molecule losses equal to the port's
-             on the CPU, one profiled molecule step each; then a summary
+             on the CPU, one profiled molecule step each; then EquiformerV2
+             on ``minibatch_lg`` through ``node_chunks = 16``: the bundle's
+             batch binned into 16 destination ranges of 10,624 nodes
+             (every real edge kept), one step at 1 and at 2 layers for the
+             bytes a layer adds at peak, then the deepest L of 12 whose
+             peak stays under 72e9 bytes, one warm-up and 3 timed steps
+             (the same gates, the peak under the cap, TFLOP/s of the
+             bundle's count at depth L, one profiled step); then a summary
              with the runs the card does not take (``reduced``);
+29b. check — EquiformerV2 at full widths and 12 layers on
+             ``full_graph_sm`` binned into 4 ranges of 768 nodes: the
+             loss and global gradient norm of ``edge_chunk = E' / 4`` and
+             of ``node_chunks = 4`` within 1e-3 / 1e-4 of the default
+             path's on the same weights;
 30. lm_train — LM training through ``repro_torch.launch.train.train`` in
              float32 with TF32 off, into a temporary checkpoint directory:
              ``lm100m`` (12 layers, d_model 768, vocab 32,768) at batch 8 x
@@ -391,15 +413,24 @@ GNN_RTOL, GNN_ATOL = 1e-3, 1e-4
 SAMPLED = {"n_nodes": 232_965, "avg_degree": 50, "d_feat": 602,
            "n_classes": 41, "seeds": 1024, "fanouts": [15, 10]}
 GNN_REDUCED = {
-    "ogb_products": "ogb_products is not run: GAT's second layer alone "
-    "materialises [61.9M, 8, 47] fp32 messages (~93 GB)",
-    "equiformer_minibatch": "equiformer-v2 on minibatch_lg is not run: "
-    "79.5 TFLOP a step by the reference's count, and 12 per-layer inputs "
-    "[169984, 128, 49] fp32 (4.3 GB each) kept across remat exceed the "
-    "card without the unported node_chunks path",
+    "ogb_products": "ogb_products is not run: no path of the reference "
+    "fits it on one card (2,449,029 nodes, 61,859,140 edges): GAT's second "
+    "layer makes ~93 GB of [61.9M, 8, 47] fp32 messages, SchNet's RBF "
+    "[61.9M, 300] fp32 is 74 GB, NequIP's per-edge [E, 32, 9] fp32 "
+    "tensors are 71 GB each, EquiformerV2 keeps one [2.45M, 128, 49] fp32 "
+    "input a layer, 61.4 GB each",
     "sampled_degree": "GAT's sampled graph has average degree 50, not "
     "Reddit's ~492 (past a degree of 15 the sampled shape depends only on "
     "the fanout)"}
+# EquiformerV2 on minibatch_lg (published widths) through node_chunks: the
+# bundle's batch binned into this many destination ranges; the deepest L
+# of 12 layers whose peak (predicted from one- and two-layer probe steps)
+# stays under the cap, then timed steps after one warm-up
+EQ_LG_CHUNKS = 16
+EQ_LG_PEAK_BYTES = 72e9
+EQ_LG_STEPS = 3
+# the card's path-parity check: full_graph_sm binned into this many ranges
+EQ_CHECK_CHUNKS = 4
 # LM training: each preset's (batch, seq, steps) and, for lm100m, the
 # resumed run's total steps; the CPU parity shape (batch, seq); steps timed
 # with CUDA events after one warm-up
@@ -446,6 +477,15 @@ BF16_TRAIN_LAYERS = 6
 BF16_TRAIN_BATCH = 2
 BF16_TRAIN_STEPS = 5
 BF16_TRAIN_PEAK_BYTES = 60e9
+# the host-staging baseline: the reference's --residency sets (cbo, ic),
+# run warm on phase 9's sf=1 store (at sf=100 the staged runs took 163.1 s
+# on an NVIDIA H100 80GB HBM3, 700.00 W: over a 120 s budget)
+RESIDENCY_SETS = ("Qc", "ic")
+RESIDENCY_REDUCED = (
+    "residency runs on phase 9's sf=1 store, not phase 4's sf=100: there "
+    "the staged set's two runs of the 14 queries take over 120 s (Qc3b "
+    "alone downloads 1.0e10 padded elements a run) and 5 of the 14 stop "
+    "at the blow-up guard on both sets")
 # the update stream at sf=100: a round's writes (edge inserts, deletes of
 # base KNOWS edges, PERSON inserts; base PERSON deletes in the last round
 # only), its reads, the chunks they interleave in, the reads a round held
@@ -1002,6 +1042,102 @@ def main_path(sf: float) -> tuple[dict, dict, object, object, object]:
             calls["most_rows"][2])
 
 
+def residency_path(gopt, sf: float) -> dict:
+    """The residency sets' 14 queries (``cbo``, ``ic``) on ``gopt``'s store
+    (phase 9's, at scale factor ``sf``), each run warm on the resident cuda set (``gopt.execute``) and through
+    ``HostStagingOperators`` over the same set (host columns, padded
+    blocks sent to the card and back on every expand and probe): one
+    warm-up run each, then one timed run.  Identical rows (or both at the
+    blow-up guard), no mid-plan download on the resident set and some on
+    the staged one, and every K1 launch of the staged runs on ``fence``,
+    one a probed slab (the staged set's ``dispatch:intersect``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.physical_spec import TransferStats
+    from repro_torch.graphdb.engine import Engine
+    from repro_torch.graphdb.host_staging import HostStagingOperators
+    t_phase = time.perf_counter()
+    staged = HostStagingOperators(gopt.spec.operators(gopt.store))
+
+    def timed(run):
+        out, t_all = None, time.perf_counter()
+        for _ in range(2):                      # a warm-up, then the timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                tbl, st = run()
+                torch.cuda.synchronize()
+                out = (tbl, st, None)
+            except RuntimeError as exc:
+                if "intermediate blow-up" not in str(exc):
+                    raise
+                torch.cuda.synchronize()
+                out = (None, None, str(exc)[:160])
+        now = time.perf_counter()
+        return out + ((now - t0) * 1e3, (now - t_all) * 1e3)
+
+    kernels.reset_launches()
+    recs, slabs, staged_ms = [], 0, 0.0
+    for name, text, params in QUERIES:
+        if not name.startswith(RESIDENCY_SETS):
+            continue
+        opt = gopt.optimize(text, params)
+        res, rst, rerr, res_ms, _ = timed(
+            lambda: gopt.execute(opt, params=params))
+        before = dict(kernels.LAUNCHES)
+        eng = Engine(gopt.store, backend=staged)
+        stg, sst, serr, stg_ms, both_ms = timed(
+            lambda: eng.run(opt.logical, opt.physical, params=params))
+        launched = {k: kernels.LAUNCHES.get(k, 0) - before.get(k, 0)
+                    for k in ("wcoj_intersect", "wcoj_intersect.fence")}
+        staged_ms += both_ms
+        rec = {"name": name, "resident_ms": res_ms, "staged_ms": stg_ms}
+        require((rerr is None) == (serr is None),
+                f"residency {name}: resident {rerr}, staged {serr}")
+        if rerr is not None:
+            rec["outcome"] = "blowup"
+            recs.append(rec)
+            continue
+        _rows_equal(name, "staged vs resident", stg, res)
+        n = sst.kernels.get("dispatch:intersect", 0)
+        # two runs of the plan: the warm-up's slabs and the timed run's
+        require(launched["wcoj_intersect"] == 2 * n
+                and launched["wcoj_intersect.fence"] == 2 * n,
+                f"residency {name}: {launched} K1 launches over two runs, "
+                f"{n} probed slabs a run")
+        slabs += n
+        rec.update(outcome="ok", rows=res.nrows,
+                   resident_mid_plan_d2h=TransferStats.mid_plan_d2h(
+                       rst.transfers),
+                   staged_mid_plan_d2h=TransferStats.mid_plan_d2h(
+                       sst.transfers),
+                   staged_slabs_probed=n,
+                   resident_transfers=rst.transfers,
+                   staged_transfers=sst.transfers,
+                   speedup=stg_ms / res_ms if res_ms else None)
+        require(rec["resident_mid_plan_d2h"] == 0,
+                f"residency {name}: the resident set downloaded mid-plan")
+        require(rec["staged_mid_plan_d2h"] > 0,
+                f"residency {name}: the staged set downloaded nothing")
+        recs.append(rec)
+    launches = dict(kernels.LAUNCHES)
+    require(len(recs) == 14, f"residency: {len(recs)} queries, expected 14")
+    require(slabs > 0 and launches.get("wcoj_intersect", 0) > 0,
+            "residency: the staged set launched no K1")
+    require(launches.get("wcoj_intersect.fence", 0)
+            == launches["wcoj_intersect"],
+            f"residency: K1 launches {launches}, not all on fence")
+    ok = [r for r in recs if r["outcome"] == "ok"]
+    return {"phase": "residency", "sf": sf, "queries": len(recs),
+            "queries_ok": len(ok), "staged_slabs_probed": slabs,
+            "launches": launches,
+            "resident_ms_total_ok": sum(r["resident_ms"] for r in ok),
+            "staged_ms_total_ok": sum(r["staged_ms"] for r in ok),
+            "staged_ms_both_runs": staged_ms,
+            "results": recs, "reduced": [RESIDENCY_REDUCED],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def _rows_equal(name: str, what: str, a, b) -> None:
     import numpy as np
     require(a.nrows == b.nrows and set(a.cols) == set(b.cols),
@@ -1012,10 +1148,11 @@ def _rows_equal(name: str, what: str, a, b) -> None:
                 f"{name}: column {k} differs ({what})")
 
 
-def cross_check(sf: float) -> dict:
+def cross_check(sf: float) -> tuple[dict, object]:
     """GLogue, plans and results on cuda equal those on cpu; once each
     chain is measured, the fused chains on cuda, the per-hop loop on cuda
-    and the fused chains on cpu give identical rows."""
+    and the fused chains on cpu give identical rows.  Returns the record
+    and the cuda ``GOpt`` (the ``residency`` phase runs on its store)."""
     from repro_torch.core.gopt import GOpt
     from repro_torch.core.physical import plan_signature
     from repro_torch.graphdb.ldbc import generate_ldbc
@@ -1049,7 +1186,7 @@ def cross_check(sf: float) -> dict:
     return {"phase": "check", "sf": sf, "queries": len(QUERIES),
             "result_rows": rows, "glogue_freqs": len(gc.glogue.freq),
             "fused_chain_dispatches": fused, "identical": True,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0}, gc
 
 
 # ---------------------------------------- Gremlin and the sharded backend
@@ -3941,17 +4078,182 @@ def gnn_path() -> dict:
             recs.append(gnn_run(arch, shape, use))
             emit(recs[-1])
     del src
+    recs.append(equiformer_lg_path())
+    emit(recs[-1])
     gc.collect()
     torch.cuda.empty_cache()
     return {
         "phase": "gnn", "runs": len(recs),
-        "reduced": list(GNN_REDUCED.values()),
+        "reduced": list(GNN_REDUCED.values()) + recs[-1]["reduced"],
         "sampled_graph": graph,
         "summary": {f"{r['arch']}/{r['shape']}": {
             "step_ms_median": r["step_ms_median"],
             "max_memory_allocated": r["max_memory_allocated"],
             "tflops_per_s": r["tflops_per_s"]} for r in recs},
         "seconds": time.perf_counter() - t0}
+
+
+def equiformer_lg_path() -> dict:
+    """EquiformerV2 on ``minibatch_lg`` at published widths through
+    ``node_chunks``: the bundle's batch with its edges binned into
+    ``EQ_LG_CHUNKS`` destination ranges (``bin_edges``; every real edge
+    kept), one train step at 1 and at 2 layers for the bytes a layer adds
+    at peak, then the deepest L of 12 whose predicted peak stays under
+    ``EQ_LG_PEAK_BYTES``: one warm-up and ``EQ_LG_STEPS`` timed steps (CUDA
+    events), every loss and gradient norm finite, every step moving the
+    weights, the peak under the cap, one profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import equiformer_v2 as eq2_cfg
+    from repro_torch.models.gnn import equiformer_v2 as eq2
+    from repro_torch.train import optimizer as opt
+    t_phase = time.perf_counter()
+    bundle, shape = eq2_cfg.bundle(), "minibatch_lg"
+    host = bundle.host_batch(shape, SEED)
+    N = host["labels"].shape[0]
+    t0 = time.perf_counter()
+    edges = eq2.bin_edges(host["edges"], N, EQ_LG_CHUNKS)
+    bin_ms = (time.perf_counter() - t0) * 1e3
+    real = host["edges"][:, (host["edges"] >= 0).all(0)]
+    kept = edges[:, (edges >= 0).all(0)]
+    require(kept.shape == real.shape and np.array_equal(
+        kept[:, np.lexsort(kept)], real[:, np.lexsort(real)]),
+        f"gnn equiformer-v2 {shape}: binning kept {kept.shape[1]} of "
+        f"{real.shape[1]} edges")
+    batch, copy_ms = to_card(dict(host, edges=edges))
+    E = edges.shape[1]
+    base = dataclasses.replace(bundle.model_cfg(shape),
+                               node_chunks=EQ_LG_CHUNKS)
+    require(eq2._path(base, N, E) == ("node", EQ_LG_CHUNKS),
+            f"gnn equiformer-v2 {shape}: node_chunks not taken")
+
+    def train(L: int, steps: int, profile: bool = False) -> dict:
+        cfg = dataclasses.replace(base, n_layers=L)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = eq2.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda")
+        ost = opt.init(bundle.adam_cfg(), model.parameters())
+        step = eq2.make_train_step(cfg, bundle.adam_cfg())
+        out = {"ms": [], "loss": [], "grad_norm": [], "moved": []}
+        for _ in range(steps):
+            before = [p.detach().clone() for p in model.parameters()]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            model, ost, m = step(model, ost, batch)
+            b.record()
+            b.synchronize()
+            out["ms"].append(a.elapsed_time(b))
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["moved"].append(sum(not torch.equal(p.detach(), q) for p, q
+                                    in zip(model.parameters(), before)))
+            del before
+        out["peak"] = torch.cuda.max_memory_allocated()
+        if profile:
+            out["profiled"] = profile_step(step, model, ost, batch)
+        del model, ost, step
+        return out
+
+    probe = {L: train(L, 1)["peak"] for L in (1, 2)}
+    layer_bytes = probe[2] - probe[1]
+    require(layer_bytes > 0, f"gnn equiformer-v2 {shape}: probe peaks "
+                             f"{probe}")
+    L = min(12, int((EQ_LG_PEAK_BYTES - (probe[1] - layer_bytes))
+                    // layer_bytes))
+    require(L >= 1, f"gnn equiformer-v2 {shape}: one layer needs "
+                    f"{probe[1]} bytes")
+    run = train(L, 1 + EQ_LG_STEPS, profile=True)
+    times = run["ms"][1:]
+    require(all(np.isfinite(run["loss"])) and all(np.isfinite(
+        run["grad_norm"])), f"gnn equiformer-v2 {shape}: non-finite loss "
+        f"{run['loss']} or grad norm {run['grad_norm']}")
+    require(all(n > 0 for n in run["moved"]),
+            f"gnn equiformer-v2 {shape}: a step left every parameter as it "
+            f"was ({run['moved']} tensors moved)")
+    require(run["peak"] <= EQ_LG_PEAK_BYTES,
+            f"gnn equiformer-v2 {shape}: peak {run['peak']} bytes at {L} "
+            f"layers")
+    cfg = dataclasses.replace(base, n_layers=L)
+    flops = bundle._flops_fn(cfg, bundle.shapes[shape])
+    med = statistics.median(times)
+    reduced = [] if L == 12 else [
+        f"equiformer-v2 on minibatch_lg: {L} of 12 layers (a layer adds "
+        f"{layer_bytes} bytes at peak; {probe[1]} at one layer; the cap is "
+        f"{EQ_LG_PEAK_BYTES:.0f})"]
+    return {"phase": "gnn", "arch": "equiformer-v2", "shape": shape,
+            "path": "node_chunks", "node_chunks": EQ_LG_CHUNKS,
+            "dtype": str(cfg.dtype), "layers": L, "n_nodes": N,
+            "n_edges": E, "real_edges": int(real.shape[1]),
+            "bin_capacity": E // EQ_LG_CHUNKS, "host_bin_ms": bin_ms,
+            "host_to_device_ms": copy_ms, "probe_peaks": probe,
+            "layer_bytes": layer_bytes, "steps": EQ_LG_STEPS,
+            "step_ms": times, "step_ms_median": med,
+            "warmup_ms": run["ms"][0], "loss": run["loss"],
+            "grad_norm": run["grad_norm"], "tensors_moved": run["moved"],
+            "max_memory_allocated": run["peak"],
+            "reference_model_flops": flops,
+            "tflops_per_s": flops / (med * 1e-3) / 1e12,
+            "profiled": run["profiled"], "reduced": reduced,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def equiformer_paths_check() -> dict:
+    """EquiformerV2 at full widths and 12 layers (float32, TF32 off) on the
+    bundle's ``full_graph_sm`` batch binned into ``EQ_CHECK_CHUNKS``
+    destination ranges: the loss and the global gradient norm of
+    ``edge_chunk = E' / 4`` and of ``node_chunks = 4`` within the GNN
+    tolerance of the default path's, on the same weights."""
+    import torch
+    from repro_torch.configs import equiformer_v2 as eq2_cfg
+    from repro_torch.models.gnn import equiformer_v2 as eq2
+    from repro_torch.train import optimizer as opt
+    t_phase = time.perf_counter()
+    bundle, shape = eq2_cfg.bundle(), "full_graph_sm"
+    host = bundle.host_batch(shape, SEED)
+    N = host["labels"].shape[0]
+    host["edges"] = eq2.bin_edges(host["edges"], N, EQ_CHECK_CHUNKS)
+    E = host["edges"].shape[1]
+    batch, _ = to_card(host)
+    cfg0 = bundle.model_cfg(shape)
+    model = eq2.init_params(
+        cfg0, torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    params = list(model.parameters())
+    paths = {}
+    for path, kw in (("default", {}),
+                     ("edge_chunk", {"edge_chunk": E // EQ_CHECK_CHUNKS}),
+                     ("node_chunks", {"node_chunks": EQ_CHECK_CHUNKS})):
+        cfg = dataclasses.replace(cfg0, **kw)
+        require(eq2._path(cfg, N, E)[0] == path.split("_")[0],
+                f"equiformer check: {kw} does not take {path}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = eq2.loss_fn(model, batch, cfg)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        norm = opt.global_norm([g for g in grads if g is not None])
+        paths[path] = {"loss": loss.item(), "grad_norm": norm.item(),
+                       "ms": (time.perf_counter() - t0) * 1e3,
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated()}
+        del loss, grads
+    want = paths["default"]
+    for path in ("edge_chunk", "node_chunks"):
+        for key in ("loss", "grad_norm"):
+            err = abs(paths[path][key] - want[key])
+            paths[path][f"{key}_abs_err"] = err
+            require(err <= GNN_ATOL + GNN_RTOL * abs(want[key]),
+                    f"equiformer check: {path} {key} {paths[path][key]}, "
+                    f"default {want[key]}")
+    del model, batch
+    return {"phase": "check", "what": "equiformer-v2 paths", "shape": shape,
+            "layers": cfg0.n_layers, "n_nodes": N, "n_edges": E,
+            "chunks": EQ_CHECK_CHUNKS, "rtol": GNN_RTOL, "atol": GNN_ATOL,
+            "paths": paths, "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------- lm train
@@ -4631,7 +4933,11 @@ def run() -> int:
     emit(shard_probe)
     del probes, inputs, most_rows_csr
 
-    emit(cross_check(CHECK_SF))
+    check_rec, check_gopt = cross_check(CHECK_SF)
+    emit(check_rec)
+    residency_rec = residency_path(check_gopt, CHECK_SF)
+    emit(residency_rec)
+    del check_gopt
     emit(delta_check(CHECK_SF))
 
     # the update stream takes the sf=100 store over: nothing else may hold
@@ -4742,6 +5048,7 @@ def run() -> int:
     emit(recsys_train_check())
 
     emit(gnn_path())
+    emit(equiformer_paths_check())
 
     lm_recs, lm_calls = lm_train_path()
     q, k, v, q_start, kv_len, kw, dout = lm_calls["lm100m_attention"]
@@ -4798,6 +5105,7 @@ def run() -> int:
             captured["glogue_most_steps"],
             [synth, *captured.values(), shard_probe, *view_recs],
             main_rec["launches"].get("wcoj_intersect", 0)
+            + residency_rec["launches"].get("wcoj_intersect", 0)
             + sharded_rec["launches"].get("wcoj_intersect", 0)
             + mutate_rec["launches"].get("wcoj_intersect", 0)),
         kernel_entry(

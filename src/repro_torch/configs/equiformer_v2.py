@@ -3,7 +3,9 @@ m_max=2, 8 heads, SO(2)-eSCN convolutions.
 
 The reference's ``REPRO_GNN_PERF`` environment switches (the chunked
 paths, bf16) are perf knobs and are not read: the config is the
-published one, on the default path.
+published one, on the default path.  A caller picks a chunked path
+through the config's own field, e.g. ``dataclasses.replace(cfg,
+node_chunks=16)`` over a batch binned by destination range.
 """
 import dataclasses
 

@@ -78,6 +78,25 @@ def csr_expand_flat(indptr, indices, pos, rows, total: int):
     return ridx.to(_I32), nbr.to(_I32), epos.to(_I32)
 
 
+def expand_padded(indptr: torch.Tensor, indices: torch.Tensor,
+                  rows: torch.Tensor, d_max: int):
+    """Each row's first ``d_max`` neighbours as a padded block, the twin of
+    the reference's ``jaxops.expand_padded``: ``(nbr, valid, flat)``, each
+    ``[R, d_max]``; ``nbr`` and ``flat`` (the slot in ``indices``) are -1
+    where ``valid`` is False.  A row of more than ``d_max`` neighbours is
+    cut (the caller sizes ``d_max``); ``indices`` is not empty.  Only the
+    host-staging baseline (``host_staging.py``) expands this way."""
+    rows = rows.to(_I64)
+    start = indptr[rows]
+    deg = indptr[rows + 1] - start
+    offs = torch.arange(d_max, dtype=indptr.dtype,
+                        device=indptr.device)[None, :]
+    valid = offs < deg[:, None]
+    flat = torch.clamp(start[:, None] + offs, 0, indices.shape[0] - 1)
+    nbr = torch.where(valid, indices[flat.to(_I64)], -1)
+    return nbr, valid, torch.where(valid, flat, -1)
+
+
 def lex_ranks(cols: list) -> torch.Tensor:
     """Dense lexicographic ranks of row tuples (``cols[0]`` most
     significant): equal tuples share a rank and rank order is the tuples'

@@ -8,13 +8,31 @@ the tensor product collapses to dense SO(2) mixings per |m| <= m_max.
 Same reductions as the reference: a gate nonlinearity, radial scaling per
 l, single-hop attention logits from the m=0 stream.
 
-The default path (``edge_chunk == 0``, ``node_chunks == 0``) is ported:
-the reference's two chunked paths are not, and a config asking for one
-raises.  Each layer runs under ``torch.utils.checkpoint`` (the
-reference's per-layer ``jax.checkpoint``), so the backward holds one
-layer's edge tensors at a time.  The reference stacks the layers'
-parameters along a leading axis for its ``lax.scan``; the port keeps a
-``ModuleList`` of layers, and ``params_from_reference`` unstacks axis 0.
+Each layer runs under ``torch.utils.checkpoint`` (the reference's
+per-layer ``jax.checkpoint``), so the backward holds one layer's edge
+tensors at a time.  Inside a layer the messages take one of the
+reference's three paths, chosen by its own rule (``_path``):
+
+- the default: every edge at once, a segment softmax over the N
+  destinations;
+- ``node_chunks`` (wins when both are set): the caller has binned the
+  edges by destination range, ``E / nch`` edges a chunk in array order,
+  chunk c's targets in ``[c N/nch, (c+1) N/nch)``.  Each chunk's softmax
+  and sum finish locally over its ``N / nch`` nodes, so nothing is
+  carried; an edge whose destination lies outside its chunk's range is
+  dropped, as in the reference;
+- ``edge_chunk``: chunks of ``edge_chunk`` edges with an online segment
+  softmax that carries the running max, sum and an fp32 ``[N, C, dim]``
+  accumulator.  The softmax does not depend on the max it is shifted by,
+  so the max carries no gradient (as in ``common.segment_softmax``).
+
+A setting that fails its condition takes the default path, and
+``bin_edges`` lays a batch out for ``node_chunks``.  Each chunk runs under
+its own checkpoint, inside the layer's; the chunks reuse the precomputed
+Wigner rows, radial bases and envelopes by slicing them.  The reference
+stacks the layers' parameters along a leading axis for its ``lax.scan``;
+the port keeps a ``ModuleList`` of layers, and ``params_from_reference``
+unstacks axis 0.
 The per-edge Wigner matrices depend on the geometry alone, so they are
 built once per forward rather than in every layer: the rows of one
 block-diagonal matrix an edge that reach the components the SO(2) mixing
@@ -38,8 +56,8 @@ from repro_torch.models.gnn.common import (ParamTree, edge_vectors,
                                            energy_loss, gaussian_rbf,
                                            graph_readout, masked_nll,
                                            poly_cutoff, safe_edges,
-                                           segment_softmax, segment_sum,
-                                           take_rows)
+                                           segment_max, segment_softmax,
+                                           segment_sum, take_rows)
 from repro_torch.models.gnn.irreps import edge_wigner, irrep_slices
 from repro_torch.models.gnn.nequip import embed_scalars, gate, per_l_mix
 from repro_torch.models.sharding import shard_hint
@@ -64,10 +82,11 @@ class EquiformerV2Config:
     n_graphs: int = 1
     n_classes: int = 0
     dtype: Any = torch.float32
-    # the reference's chunked paths (edges in chunks with an online
-    # segment softmax; edges pre-binned by destination-node range): kept
-    # for config parity, not ported; nonzero raises in ``forward``
+    # process edges in chunks with an online segment softmax, so the
+    # per-edge [E, C, dim] tensors never exist at full E
     edge_chunk: int = 0
+    # edges pre-binned by destination-node range (chunk c targets nodes in
+    # [c*N/nch, (c+1)*N/nch)): each chunk's softmax and sum finish locally
     node_chunks: int = 0
 
     @property
@@ -155,6 +174,27 @@ def params_from_reference(cfg: EquiformerV2Config, arrays: dict,
     return EquiformerV2(cfg, resolve_device(device)).load(arrays)
 
 
+def bin_edges(edges: np.ndarray, n_nodes: int, nch: int) -> np.ndarray:
+    """A padded COO batch ``[2, E]`` (-1 pads) laid out for ``node_chunks
+    = nch``: the real edges grouped by destination range (``n_nodes /
+    nch`` nodes a range; in their order within a range), every group
+    padded with -1 edges to the fullest group's size ``cap``, so the
+    result is ``[2, nch * cap]``."""
+    edges = np.asarray(edges)
+    if n_nodes % nch:
+        raise ValueError(f"{n_nodes} nodes do not split into {nch} ranges")
+    real = edges[:, (edges >= 0).all(axis=0)]
+    b = real[1] // (n_nodes // nch)
+    order = np.argsort(b, kind="stable")
+    counts = np.bincount(b, minlength=nch)
+    cap = max(int(counts.max()), 1)
+    slot = np.arange(real.shape[1]) - np.repeat(np.cumsum(counts) - counts,
+                                                counts)
+    out = np.full((2, nch * cap), -1, dtype=edges.dtype)
+    out[:, b[order] * cap + slot] = real[:, order]
+    return out
+
+
 def _equi_layernorm(x, scale, slices):
     """Per-l RMS over (channel, m) with learned per-channel scale."""
     outs = []
@@ -220,26 +260,119 @@ def _so2_conv(fe, lp, blocks):
     return torch.cat(parts, dim=1).reshape(E, K, C)
 
 
-def _layer(x, lp, cfg, slices, src, dst, m, Dk, rbf, env, so2):
-    N, C, dim = x.shape
-    H = cfg.n_heads
-    keep, l_of, blocks = so2
-    xn = _equi_layernorm(x, lp.ln_scale.to(cfg.dtype), slices)
+def _edge_messages(xn, lp, cfg, src, Dk, rbf, env, so2):
+    """Messages rotated back to the world frame (``[e, C, dim]``) and
+    attention logits (``[e, H]``) of one slice of edges."""
+    _, l_of, blocks = so2
     rad = F.silu(rbf.to(cfg.dtype) @ lp.rad1 + lp.rad1_b) @ lp.rad2
-    rad = rad * env.to(cfg.dtype)                          # [E, l_max+1]
+    rad = rad * env.to(cfg.dtype)                          # [e, l_max+1]
     # rotate into the edge frame (only the components the SO(2) mixing
     # keeps: those with |m| > m_max are dropped there), mix, scale by l
-    fe = Dk @ take_rows(xn, src).transpose(1, 2)           # [E, K, C]
+    fe = Dk @ take_rows(xn, src).transpose(1, 2)           # [e, K, C]
     fe = shard_hint(fe, "edge_msg")
     me = _so2_conv(fe, lp, blocks) * torch.index_select(rad, 1, l_of)[
         ..., None]
-    logits = me[:, 0] @ lp.alpha.to(cfg.dtype)             # [E, H] (l=m=0)
+    logits = me[:, 0] @ lp.alpha.to(cfg.dtype)             # [e, H] (l=m=0)
     # rotate messages back to the world frame before aggregation
-    mw = me.transpose(1, 2) @ Dk                           # [E, C, dim]
-    E = mw.shape[0]
-    alpha = segment_softmax(logits, dst, N, mask=m[:, None])
-    mv = mw.reshape(E, H, C // H, dim) * alpha[..., None, None]
-    agg = segment_sum(mv.reshape(E, C, dim), dst, N)
+    return me.transpose(1, 2) @ Dk, logits                 # [e, C, dim]
+
+
+def _weighted(mw, w, H):
+    """Each head's channels of ``mw [e, C, dim]`` scaled by ``w [e, H]``."""
+    e, C, dim = mw.shape
+    return (mw.reshape(e, H, C // H, dim) * w[..., None, None]).reshape(
+        e, C, dim)
+
+
+def _ckpt(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint where autograd
+    records."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _path(cfg: EquiformerV2Config, N: int, E: int) -> tuple:
+    """The reference's choice: ``("node", nch)``, ``("edge", chunk)`` or
+    ``("default",)``; a setting whose condition fails takes the default."""
+    if cfg.node_chunks > 1 and N % cfg.node_chunks == 0 \
+            and E % cfg.node_chunks == 0:
+        return ("node", cfg.node_chunks)
+    if cfg.edge_chunk and E > cfg.edge_chunk and E % cfg.edge_chunk == 0:
+        return ("edge", cfg.edge_chunk)
+    return ("default",)
+
+
+def _node_chunk(xn, lp, cfg, lo, Nc, src, dst, m, Dk, rbf, env, so2):
+    """One destination range's aggregate ``[Nc, C, dim]``: the softmax in
+    fp32 over the range's ``Nc`` nodes, edges aimed outside it dropped."""
+    mw, logits = _edge_messages(xn, lp, cfg, src, Dk, rbf, env, so2)
+    dloc = (dst - lo).clamp(0, Nc - 1)
+    ok = m & (dst >= lo) & (dst < lo + Nc)
+    alpha = segment_softmax(logits.float(), dloc, Nc, mask=ok[:, None])
+    return segment_sum(_weighted(mw, alpha.to(mw.dtype), cfg.n_heads),
+                       dloc, Nc)
+
+
+def _edge_chunk(mx, lsum, acc, xn, lp, cfg, src, dst, m, Dk, rbf, env,
+                so2):
+    """One step of the online segment softmax: the running max ``mx`` and
+    sum ``lsum`` ``[N, H]`` and the fp32 accumulator ``acc [N, C, dim]``
+    after one more chunk of edges.  A destination with no edge in the
+    chunk has max ``-inf`` there (``segment_max``), so its max stays."""
+    N, C, _ = acc.shape
+    H = cfg.n_heads
+    mw, logits = _edge_messages(xn, lp, cfg, src, Dk, rbf, env, so2)
+    logits = torch.where(m[:, None], logits.float(), -1e30)
+    with torch.no_grad():
+        mx_new = torch.maximum(mx, segment_max(logits, dst, N))
+    corr = torch.exp(mx - mx_new)                          # [N, H]
+    p = torch.where(m[:, None], torch.exp(logits - take_rows(mx_new, dst)),
+                    0.0)                                   # [e, H]
+    lsum = lsum * corr + segment_sum(p, dst, N)
+    acc = (acc * corr.repeat_interleave(C // H, dim=1)[..., None]
+           + segment_sum(_weighted(mw.float(), p, H), dst, N))
+    return mx_new, lsum, acc
+
+
+def _aggregate(xn, lp, cfg, path, src, dst, m, Dk, rbf, env, so2):
+    """The attention-weighted sum of messages at each node, ``[N, C,
+    dim]``, on ``path`` (``_path``)."""
+    N, C, dim = xn.shape
+    H = cfg.n_heads
+    E = src.shape[0]
+    if path[0] == "default":
+        mw, logits = _edge_messages(xn, lp, cfg, src, Dk, rbf, env, so2)
+        alpha = segment_softmax(logits, dst, N, mask=m[:, None])
+        return segment_sum(_weighted(mw, alpha, H), dst, N)
+    if path[0] == "node":
+        nch = path[1]
+        Nc, Ec = N // nch, E // nch
+        # each part lands in its rows of one result: no list of parts is
+        # kept beside their concatenation
+        agg = xn.new_empty(N, C, dim)
+        for c in range(nch):
+            e = slice(c * Ec, (c + 1) * Ec)
+            agg[c * Nc:(c + 1) * Nc] = _ckpt(
+                _node_chunk, xn, lp, cfg, c * Nc, Nc, src[e], dst[e], m[e],
+                Dk[e], rbf[e], env[e], so2)
+        return agg
+    chunk = path[1]
+    mx = torch.full((N, H), -1e30, dtype=torch.float32, device=xn.device)
+    lsum = torch.zeros((N, H), dtype=torch.float32, device=xn.device)
+    acc = torch.zeros((N, C, dim), dtype=torch.float32, device=xn.device)
+    for s in range(0, E, chunk):
+        e = slice(s, s + chunk)
+        mx, lsum, acc = _ckpt(_edge_chunk, mx, lsum, acc, xn, lp, cfg,
+                              src[e], dst[e], m[e], Dk[e], rbf[e], env[e],
+                              so2)
+    denom = torch.clamp(lsum, min=1e-30).repeat_interleave(C // H, dim=1)
+    return (acc / denom[..., None]).to(cfg.dtype)
+
+
+def _layer(x, lp, cfg, slices, path, src, dst, m, Dk, rbf, env, so2):
+    xn = _equi_layernorm(x, lp.ln_scale.to(cfg.dtype), slices)
+    agg = _aggregate(xn, lp, cfg, path, src, dst, m, Dk, rbf, env, so2)
     agg = agg / math.sqrt(cfg.avg_neighbors)
     # node update: per-l mixing + gate
     upd = per_l_mix(agg, lp.mix.to(cfg.dtype), slices)
@@ -249,28 +382,30 @@ def _layer(x, lp, cfg, slices, src, dst, m, Dk, rbf, env, so2):
     return torch.cat([x[..., :1] + ff[..., None], x[..., 1:]], dim=-1)
 
 
-def forward(model: EquiformerV2, batch: dict,
-            cfg: EquiformerV2Config) -> torch.Tensor:
-    if cfg.edge_chunk or cfg.node_chunks:
-        raise NotImplementedError(
-            "EquiformerV2's edge_chunk and node_chunks paths are not ported")
+def layer_inputs(batch: dict, cfg: EquiformerV2Config) -> tuple:
+    """What every layer takes besides its input and weights: ``(cfg,
+    slices, path, src, dst, mask, Dk, rbf, env, so2)``, the per-edge
+    geometry built once a forward."""
     edges = batch["edges"]
     src, dst, _ = safe_edges(edges)
     rhat, d, m = edge_vectors(batch["positions"].to(cfg.dtype), edges)
     N = batch["positions"].shape[0]
     slices = irrep_slices(cfg.l_max)
     so2 = _so2_layout(cfg, rhat.device)
-
-    x = embed_scalars(model, batch, cfg, N)
     rbf = gaussian_rbf(d, cfg.n_rbf, cfg.cutoff)
     env = (poly_cutoff(d, cfg.cutoff) * m)[:, None]
     Dk = _edge_frames(rhat, cfg, slices, so2[0])
-    args = (cfg, slices, src, dst, m, Dk, rbf, env, so2)
+    return (cfg, slices, _path(cfg, N, src.shape[0]), src, dst, m, Dk, rbf,
+            env, so2)
+
+
+def forward(model: EquiformerV2, batch: dict,
+            cfg: EquiformerV2Config) -> torch.Tensor:
+    N = batch["positions"].shape[0]
+    args = layer_inputs(batch, cfg)
+    x = embed_scalars(model, batch, cfg, N)
     for lp in model.layers:
-        if torch.is_grad_enabled():
-            x = checkpoint(_layer, x, lp, *args, use_reentrant=False)
-        else:
-            x = _layer(x, lp, *args)
+        x = _ckpt(_layer, x, lp, *args)
 
     h = F.silu(x[..., 0] @ model.head1 + model.head1_b)
     h = h @ model.head2

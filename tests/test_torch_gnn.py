@@ -9,8 +9,9 @@ EquiformerV2), gradients 1e-3 / 1e-5, float32 throughout.  Then the
 twins of ``test_models.py``'s GNN invariance tests, the segment softmax
 on empty segments, the bundles (configs, shapes, parameter shapes at full
 width, FLOP counts, concrete batches) against the reference's, one train
-step of every smoke bundle against the reference's step, and the chunked
-EquiformerV2 paths refused.  The smoke bundles on cuda against the CPU
+step of every smoke bundle against the reference's step (EquiformerV2's
+chunked paths: ``test_torch_equiformer_chunks.py``).  The smoke bundles
+on cuda against the CPU
 are in ``test_torch_kernels_gpu.py``, which imports no jax and so runs on
 a machine with a card and no jax."""
 import dataclasses
@@ -436,16 +437,6 @@ def test_smoke_step_matches_reference(arch, shape):
             np.testing.assert_array_equal(want[n], before[n].numpy(), n)
         moved += not torch.equal(p.detach(), before[n])
     assert moved > 0
-
-
-def test_equiformer_chunked_paths_are_refused():
-    cfg = peq2.EquiformerV2Config(n_layers=1, d_hidden=8, l_max=2, n_heads=2,
-                                  n_rbf=8, edge_chunk=32)
-    model = _port_model(peq2, dataclasses.replace(cfg, edge_chunk=0))
-    b = _tensors(_molecule_batch())
-    for c in (cfg, dataclasses.replace(cfg, edge_chunk=0, node_chunks=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            peq2.forward(model, b, c)
 
 
 def test_equiformer_compression_groups_are_the_reference_leaves():

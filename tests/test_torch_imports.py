@@ -49,7 +49,8 @@ def test_scan_covers_the_port():
             "base.py", "torchops.py", "gremlin.py", "partition.py",
             "sharded_backend.py", "irreps.py", "gat.py", "equiformer_v2.py",
             "sampler.py", "optimizer.py", "gnn_common.py", "data.py",
-            "checkpoint.py", "loop.py", "step.py", "train.py"} <= names
+            "checkpoint.py", "loop.py", "step.py", "train.py",
+            "host_staging.py"} <= names
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     assert {p.parent.name for p in PORT_FILES if p.parent.parent == kernels
             and p.name == "ops.py"} == {"wcoj_intersect", "flash_attention",

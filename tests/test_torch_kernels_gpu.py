@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version (K1's
 two routes on CSRs where its walk is likely to go wrong); the LM, Wide
 & Deep and the GNN smoke bundles on cuda against the CPU (Wide & Deep's
-train step too, with K4's backward); fused graph chains (K1 probes
-inside) on cuda against the CPU.  Every test here is
+train step too, with K4's backward; EquiformerV2 on each of its
+message-passing paths); fused graph chains (K1 probes inside) on cuda
+against the CPU; the host-staging baseline over the cuda set.  Every test here is
 marked ``gpu``
 and skips itself without a card.  The file imports neither jax nor the
 reference package, so it runs on a machine that has only PyTorch:
@@ -1010,6 +1011,79 @@ def test_gnn_smoke_bundle_on_the_card_matches_the_cpu(card, arch, shape):
         torch.isfinite(m["grad_norm"]))
     assert any(not torch.equal(p, q)
                for p, q in zip(model.parameters(), before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["default", "edge_chunk", "node_chunks"])
+def test_equiformer_paths_on_the_card_match_the_cpu(card, path):
+    """EquiformerV2's smoke config on ``full_graph_sm`` with its edges
+    binned into 4 destination ranges (``bin_edges``), in float32 (TF32
+    off), on each message-passing path: the loss and every gradient on
+    cuda equal the same path's on the CPU (1e-3 / 1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import equiformer_v2 as eq2_cfg
+    from repro_torch.models.gnn import equiformer_v2 as eq2
+    pb = eq2_cfg.bundle(smoke=True)
+    host = pb.host_batch("full_graph_sm", 0)
+    N = host["labels"].shape[0]
+    host["edges"] = eq2.bin_edges(host["edges"], N, 4)
+    E = host["edges"].shape[1]
+    kw = {"default": {}, "edge_chunk": {"edge_chunk": E // 4},
+          "node_chunks": {"node_chunks": 4}}[path]
+    cfg = dataclasses.replace(pb.model_cfg("full_graph_sm"), **kw)
+    assert eq2._path(cfg, N, E)[0] == path.split("_")[0]
+    model = eq2.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            device=card)
+    on_host = type(model)(cfg, "cpu")
+    on_host.load_state_dict(model.state_dict())
+    grads = []
+    for m, dev in ((model, card), (on_host, torch.device("cpu"))):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        loss, _ = eq2.loss_fn(m, batch, cfg)
+        loss.backward()
+        grads.append([loss.detach().cpu()]
+                     + [p.grad.cpu() for p in m.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_host_staged_set_on_the_card_matches_the_resident_set(card):
+    """On a small LDBC store the host-staging baseline over the cuda set
+    gives the resident set's rows on the residency sets' 14 queries,
+    downloads mid-plan (the resident set does not), and launches K1 once
+    a probed slab, every launch on ``fence``."""
+    from benchmarks import queries as Q
+    from repro_torch.core.gopt import GOpt
+    from repro_torch.core.physical_spec import TransferStats
+    from repro_torch.graphdb.engine import Engine
+    from repro_torch.graphdb.host_staging import HostStagingOperators
+    from repro_torch.graphdb.ldbc import generate_ldbc
+    store = generate_ldbc(sf=0.1, seed=7)
+    gc = GOpt(store)
+    staged = HostStagingOperators(gc.spec.operators(store))
+    slabs = 0
+    for name, text, params in (
+            [(k, v, Q.QIC_PARAMS[k]) for k, v in Q.QIC.items()]
+            + [(k, v, None) for k, v in Q.QC.items()]):
+        opt = gc.optimize(text, params)
+        want, rst = gc.execute(opt, params=params)
+        before = dict(kernels.LAUNCHES)
+        got, st = Engine(store, backend=staged).run(
+            opt.logical, opt.physical, params=params)
+        torch.cuda.synchronize()
+        assert got.nrows == want.nrows and set(got.cols) == set(want.cols)
+        for k in got.cols:
+            np.testing.assert_array_equal(np.asarray(got.cols[k]),
+                                          np.asarray(want.cols[k]),
+                                          err_msg=f"{name}/{k}")
+        assert TransferStats.mid_plan_d2h(rst.transfers) == 0
+        assert TransferStats.mid_plan_d2h(st.transfers) > 0
+        n = st.kernels.get("dispatch:intersect", 0)
+        for key in ("wcoj_intersect", "wcoj_intersect.fence"):
+            assert kernels.LAUNCHES.get(key, 0) - before.get(key, 0) == n
+        slabs += n
+    assert slabs > 0
 
 
 # ------------------------------------------------ LM training: the backward
