@@ -1,0 +1,62 @@
+"""``BENCHMARK.json`` and the files it names, found by name.
+
+A cell names a configuration and a traffic mix; the configuration's file
+is ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives), the mix's
+is ``traffic/<traffic>.json``, and each metric's reader is
+``metrics/<metric name>.py``.  Adding a cell, a mix or a metric adds files
+and entries; no file here changes.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import re
+from pathlib import Path
+
+BENCH_DIR = Path(__file__).resolve().parent
+ROOT = BENCH_DIR.parent
+BENCHMARK = ROOT / "BENCHMARK.json"
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+
+
+def load() -> dict:
+    return json.loads(BENCHMARK.read_text())
+
+
+def cell(spec: dict, name: str) -> dict:
+    for w in spec["workloads"]:
+        if w["name"] == name:
+            return w
+    raise KeyError(f"no cell {name!r} in {BENCHMARK.name}")
+
+
+def config(spec: dict, name: str) -> dict:
+    for c in spec["configs"]:
+        if c["name"] == name:
+            return json.loads((ROOT / c["file"]).read_text())
+    raise KeyError(f"no configuration {name!r} in {BENCHMARK.name}")
+
+
+def traffic(name: str) -> dict:
+    return json.loads((BENCH_DIR / "traffic" / f"{name}.json").read_text())
+
+
+def metrics(spec: dict, cell_name: str, trace: bool) -> list[dict]:
+    """The metrics a run of ``cell_name`` reports: its end-to-end metrics
+    with ``trace`` off, its per-layer metrics with it on.  A metric with
+    no ``workloads`` key belongs to every cell."""
+    group = spec["per_layer" if trace else "end_to_end"]
+    return [m for m in group
+            if cell_name in m.get("workloads", [cell_name])]
+
+
+def reader(metric_name: str):
+    """The ``read(run)`` function of ``metrics/<metric_name>.py``."""
+    path = BENCH_DIR / "metrics" / f"{metric_name}.py"
+    mod_name = "perfbench_metric_" + re.sub(r"\W", "_", metric_name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read

@@ -1,0 +1,48 @@
+"""The comparison that decides ``correct``, and its control.
+
+Two numbers are compared, each with the limit 0:
+
+- ``wrong_answers``: every answer of the window against the plain
+  reference's (``reference/``) answer to its query;
+- ``failed_requests``: the window's queries that gave no answer (a stop at
+  the engine's blow-up guard).  The mix leaves out the queries that stop
+  at the guard, so a sound run answers every query; any other failure
+  ends the run.
+
+``control_record`` builds the record that the reference itself gives with
+one of the configuration's guarantees broken: the store keeping duplicate
+edges (a store keeps each edge once).  The check must find it not correct.
+"""
+from __future__ import annotations
+
+from perfbench.closed_loop import answer_cols, answer_key
+from perfbench.reference.answers import rows
+from perfbench.reference.graph import Graph
+from perfbench.reference.suite import SUITE
+
+
+def run_check(record: dict, raw, queries: dict):
+    g = Graph(raw)
+    wrong = checked = 0
+    first = None
+    for name, answers in record["answers"].items():
+        want = SUITE[name](g, queries[name]["params"])
+        for key, n in answers.items():
+            if key is None:             # no answer: ``failed_requests``
+                continue
+            m = want.mismatch(answer_cols(key))
+            checked += n
+            if m is not None:
+                wrong += n
+                first = first or f"{name}: {m}"
+    checks = [("wrong_answers", wrong, 0),
+              ("failed_requests", record["failed"], 0)]
+    return checks, {"answers_checked": checked, "first_wrong": first}
+
+
+def control_record(raw, traffic: dict, queries: dict) -> dict:
+    """The reference in the system's place, one guarantee broken."""
+    g = Graph(raw, dedupe=False)
+    return {"failed": 0, "answers": {
+        n: {answer_key(rows(SUITE[n](g, queries[n]["params"]))): 1}
+        for n in traffic["queries"]}}

@@ -1,0 +1,108 @@
+"""One run of one cell: build the system, drive the window, read the
+metrics, check the answers, and assemble the result line."""
+from __future__ import annotations
+
+import gc
+import json
+import sys
+import time
+
+from perfbench import bench, check, closed_loop, snb, system
+from perfbench.trace import Recorder
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+def queries() -> dict:
+    return json.loads((bench.BENCH_DIR / "queries.json").read_text())[
+        "queries"]
+
+
+def forbidden_modules() -> list[str]:
+    """Loaded modules whose top-level name is JAX's, Flax's or the JAX
+    package's (compared whole: ``repro_torch`` is not ``repro``)."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)}
+                  & set(FORBIDDEN))
+
+
+def device_record(device: str | None, trace_summary) -> dict:
+    if device is None:
+        import torch
+        out = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+               "count": 1,
+               "memory_peak_bytes": int(torch.cuda.max_memory_allocated())}
+    else:
+        out = {"platform": device, "kind": device, "count": 0,
+               "memory_peak_bytes": 0}
+    if trace_summary is not None:
+        out["busy_s"] = trace_summary.busy_s
+        out["window_s"] = trace_summary.window_s
+    return out
+
+
+def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
+             t_process: float, device: str | None = None,
+             sizes: dict | None = None) -> dict:
+    """The result line of one run (``t_process``: the process's start on
+    the ``time.perf_counter`` clock).  ``device="cpu"`` and ``sizes``
+    (keys of the configuration and the traffic file replaced) are for the
+    CPU tests; a run on the card takes neither."""
+    spec = bench.load()
+    cell = bench.cell(spec, cell_name)
+    cfg = bench.config(spec, cell["config"])
+    trf = bench.traffic(cell["traffic"])
+    for key, value in (sizes or {}).items():
+        (cfg if key in cfg else trf)[key] = value
+    qs = queries()
+    rec = Recorder(trace)
+    sut = system.build(cfg, seed, device)
+    record = closed_loop.run(sut, cfg, trf, qs, seed, seconds, rec)
+    record["setup_s"] = rec.first_timed - t_process
+    record["glogue_s"] = sut.glogue_s
+    record["generate_s"] = sut.generate_s
+    record["trace"] = rec.summary()
+    record["traced_done"] = rec.traced_done
+    dev = device_record(device, record["trace"])
+    metrics = {}
+    for m in bench.metrics(spec, cell_name, trace):
+        value = bench.reader(m["name"])(record)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    raw = sut.raw
+    del sut            # the program's state goes before the reference runs
+    gc.collect()
+    t0 = time.perf_counter()
+    checks, notes = check.run_check(record, raw, qs)
+    notes["reference_s"] = time.perf_counter() - t0
+    notes["window_s"] = record["window_s"]
+    notes["generate_s"] = record["generate_s"]
+    if trace:
+        notes["trace_read_s"] = rec.stop_s
+    notes.update(record.get("notes", {}))
+    line = {"correct": all(v <= lim for _, v, lim in checks),
+            "attempted": record["attempted"], "failed": record["failed"],
+            "metrics": metrics, "device": dev}
+    if record["trace"] is not None:
+        line["breakdown"] = record["trace"].breakdown()
+    line["notes"] = notes
+    line["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
+    return line
+
+
+def run_control(cell_name: str, seed: int) -> dict:
+    """The control in the system's place (``check.control_record``),
+    through the same comparison."""
+    spec = bench.load()
+    cell = bench.cell(spec, cell_name)
+    cfg = bench.config(spec, cell["config"])
+    trf = bench.traffic(cell["traffic"])
+    qs = queries()
+    raw = snb.generate(cfg["generator_scale"], seed)
+    t0 = time.perf_counter()
+    record = check.control_record(raw, trf, qs)
+    checks, notes = check.run_check(record, raw, qs)
+    return {"control": True, "cell": cell_name, "seed": seed,
+            "correct": all(v <= lim for _, v, lim in checks),
+            "seconds": time.perf_counter() - t0, "notes": notes,
+            "checks": {n: {"value": v, "limit": lim}
+                       for n, v, lim in checks}}

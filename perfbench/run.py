@@ -1,0 +1,85 @@
+"""Run one cell of ``BENCHMARK.json`` once on the card.
+
+    python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+Prints one JSON line last on standard output: ``correct``, ``attempted``,
+``failed``, ``metrics`` (the cell's end-to-end metrics, or with
+``--trace 1`` its per-layer metrics), ``device`` and, traced,
+``breakdown``; ``checks`` last, each number compared beside its limit
+(also the last lines on standard error).  Exits non-zero without a result
+when no CUDA card is there, or when JAX or the JAX package was loaded.
+
+``--control 1`` runs the cell's control instead (``check.control_record``:
+the reference in the system's place with one guarantee broken); it needs
+no card and must come out not correct.
+"""
+import os
+import time
+
+
+def _process_start() -> float:
+    """The process's start on the ``perf_counter`` clock (from
+    ``/proc/self/stat``; this line's time where that is missing)."""
+    now = time.perf_counter()
+    try:
+        with open("/proc/self/stat") as f:
+            start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return now - (uptime - start_ticks / os.sysconf("SC_CLK_TCK"))
+    except (OSError, ValueError, IndexError):
+        return now
+
+
+T_PROCESS = _process_start()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+# one process, few threads: no BLAS or OpenMP pool beside the program's
+for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ.setdefault(var, "1")
+# build and kernel caches stay inside the checkout, at fixed paths
+for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
+                 ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(var, str(ROOT / "_perfbench_cache" / sub))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--control", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    from perfbench import harness
+    if args.control:
+        print(json.dumps(harness.run_control(args.workload, args.seed)))
+        return 0
+    import torch
+    need = harness.bench.cell(harness.bench.load(), args.workload)["chips"]
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < need:
+        print(f"needs {need} CUDA device(s); found {cards}", file=sys.stderr)
+        return 2
+    line = harness.run_cell(args.workload, args.seed, args.seconds,
+                            bool(args.trace), T_PROCESS)
+    found = harness.forbidden_modules()
+    if found:
+        print(f"loaded in this process: {', '.join(found)}", file=sys.stderr)
+        return 3
+    for name, c in line["checks"].items():
+        print(f"check {name} {c['value']} limit {c['limit']}",
+              file=sys.stderr)
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,9 @@
+"""Puts the repository root and ``src`` on ``sys.path`` for the benchmark's
+tests (they run from the root with no ``conftest.py`` of their own)."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
