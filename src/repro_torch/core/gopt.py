@@ -51,7 +51,7 @@ from repro_torch.core.pipeline import (VERIFY_MODES, ExplainReport,
                                  OptimizerPipeline, PassContext,
                                  PipelineTrace, build_explain_report,
                                  default_pipeline)
-from repro_torch.graphdb.engine import Engine, ExecStats, Table
+from repro_torch.graphdb.engine import Engine, ExecStats, Table, span_clock
 from repro_torch.graphdb.storage import GraphStore
 
 _OPT_KEYS = ("type_inference", "rbo", "cbo", "use_glogue", "use_selectivity",
@@ -503,18 +503,31 @@ class GOpt:
                 chain_dispatch: bool = True,
                 sync_per_op: bool = False,
                 snapshot=None,
-                deadline_s: float | None = None
+                deadline_s: float | None = None,
+                stats: ExecStats | None = None
                 ) -> tuple[Table, ExecStats]:
+        """Run an optimized plan.  ``stats``: a record whose spans the
+        caller opened (``run``); by default the run gets its own, under a
+        root ``gopt.execute`` span."""
         if opt.invalid:
-            return Table.empty(), ExecStats()
+            return Table.empty(), stats if stats is not None else ExecStats()
         fuse = (opt.logical.hints.get("fuse_expand", True)
                 if fuse_expand is None else fuse_expand)
         spec = self.spec if backend is None else get_spec(backend)
+        root = None
+        if stats is None:
+            stats = ExecStats()
+            root = stats.open("gopt.execute")
+        setup = stats.open("engine.setup")
         eng = Engine(self.store, fuse_expand=fuse, trim_fields=trim_fields,
                      max_rows=max_rows, backend=spec,
                      chain_dispatch=chain_dispatch, sync_per_op=sync_per_op,
                      snapshot=snapshot, deadline_s=deadline_s)
-        return eng.run(opt.logical, opt.physical, params=params)
+        out = eng.run(opt.logical, opt.physical, params=params, stats=stats,
+                      setup=setup)
+        if root is not None:
+            stats.close(root)
+        return out
 
     def execute_batch(self, opt: OptimizedQuery, bindings: list[dict | None],
                       fuse_expand: bool | None = None,
@@ -548,7 +561,13 @@ class GOpt:
         A query prefixed with ``EXPLAIN`` (compile only) or ``PROFILE``
         (compile + execute) returns an ``ExplainReport`` instead of a
         result table; a plan parsed from such a query (the parser records
-        the prefix as ``hints['explain']``) routes the same way."""
+        the prefix as ``hints['explain']``) routes the same way.
+
+        The returned ``ExecStats.spans`` hold one root ``gopt.run`` span,
+        from entry to return, around ``plan`` (the prepared-plan lookup,
+        which compiles on a miss, and the re-plan on binding skew) and the
+        engine's ``engine.setup``, ``pattern``, ``tail`` and ``deliver``."""
+        start = span_clock()
         mode = None
         if isinstance(query, str):
             mode, query = _explain_prefix(query)
@@ -562,6 +581,9 @@ class GOpt:
         opts = {k: v for k, v in kw.items() if k in _OPT_KEYS}
         exec_kw = {k: v for k, v in kw.items()
                    if k not in _OPT_KEYS and k != "backend"}
+        stats = ExecStats()
+        root = stats.open("gopt.run", start)
+        span = stats.open("plan")
         pq = self.prepare(query, params, backend=kw.get("backend"), **opts)
         # run() is shared-dict friendly: forward only the bindings this
         # query declares (whichever call populated the cache), so unused
@@ -569,7 +591,11 @@ class GOpt:
         # typo'd name still surfaces — as the real parameter left unbound.
         declared = pq.declared_params()
         bound = {k: v for k, v in (params or {}).items() if k in declared}
-        return pq.execute(bound, **exec_kw)
+        pq = self._maybe_replan(pq, bound)
+        stats.close(span)
+        out = pq.execute(bound, stats=stats, **exec_kw)
+        stats.close(root)
+        return out
 
     # ------------------------------------------------------------- baselines
     def estimator(self, use_glogue: bool = True,

@@ -79,48 +79,106 @@ class CostParams:
     alpha_exchange: float = 0.0
 
 
-class TransferStats:
+class _Ledger:
+    """The event list the four ledgers share, bounded.
+
+    ``mark()`` is a plain read: the number of events recorded since
+    construction or ``reset``, the ``since`` a later ``count`` /
+    ``summary`` passes.  ``hold()`` takes a mark that keeps its events
+    until ``release(mark)``; once no hold is open, ``release`` drops all
+    but the newest ``KEEP`` events when more than ``2 * KEEP`` are kept.
+    The engine holds its marks for a run and releases them when it has
+    taken its summaries, so an operator set serving queries for hours
+    keeps O(``KEEP``) events, not its history, and a plain mark still
+    reads its events while fewer than ``KEEP`` come after it.  Reading
+    from a mark whose events were dropped raises.  Not thread-safe: the
+    engines sharing an operator set run one at a time (the QueryServer
+    runs every wave on one worker thread)."""
+
+    KEEP = 1 << 14
+
+    def __init__(self):
+        self.events: list[tuple] = []
+        self._base = 0                # events dropped before events[0]
+        self._held: list[int] = []    # holds not yet released
+
+    def reset(self):
+        self.events.clear()
+        self._base = 0
+        self._held.clear()
+
+    def mark(self) -> int:
+        return self._base + len(self.events)
+
+    def hold(self) -> int:
+        self._held.append(self.mark())
+        return self._held[-1]
+
+    def release(self, mark: int):
+        if mark in self._held:        # a reset drops every hold
+            self._held.remove(mark)
+        if not self._held and len(self.events) > 2 * self.KEEP:
+            drop = len(self.events) - self.KEEP
+            del self.events[:drop]
+            self._base += drop
+
+    def _since(self, since: int) -> list[tuple]:
+        if since < self._base:
+            raise ValueError(f"events since mark {since} were dropped "
+                             f"(kept from {self._base}); hold() the mark")
+        return self.events[since - self._base:]
+
+
+class TransferStats(_Ledger):
     """Host<->device data-movement ledger of one ``OperatorSet``.
 
     Backends call ``record("d2h"|"h2d", n_elems)`` on every array that
     crosses the boundary; the engine tags the current execution phase
     (``"pattern"`` / ``"tail"`` / ``"deliver"``) so tests and benchmarks can
     assert the residency invariant: zero ``d2h`` outside ``deliver``.
-    Scalar control-plane syncs (row counts, blow-up guards) are *not*
-    transfers and are not recorded."""
+
+    ``sync()`` records one ``sync`` event wherever the host waits for the
+    device's stream: a value read back (a row count, a blow-up guard's
+    total, a chain's control vector, a ``nonzero``'s size), each column
+    delivered, each staging copy from pageable host memory, a
+    ``block_ready`` barrier.  The torch set counts them at the call site
+    on every device, so a CPU run of a plan counts what the card's run
+    does."""
 
     def __init__(self):
+        super().__init__()
         self.phase = ""
-        self.events: list[tuple[str, str, int]] = []   # (phase, kind, elems)
+        # events: (phase, kind, elems)
 
     def record(self, kind: str, elems: int):
         self.events.append((self.phase, kind, int(elems)))
+
+    def sync(self):
+        self.events.append((self.phase, "sync", 0))
 
     def set_phase(self, phase: str):
         self.phase = phase
 
     def reset(self):
+        super().reset()
         self.phase = ""
-        self.events.clear()
-
-    def mark(self) -> int:
-        return len(self.events)
 
     def count(self, kind: str, phase: str | None = None,
               since: int = 0) -> int:
-        return sum(1 for ph, k, _ in self.events[since:]
+        return sum(1 for ph, k, _ in self._since(since)
                    if k == kind and (phase is None or ph == phase))
 
     def elems(self, kind: str, phase: str | None = None,
               since: int = 0) -> int:
-        return sum(n for ph, k, n in self.events[since:]
+        return sum(n for ph, k, n in self._since(since)
                    if k == kind and (phase is None or ph == phase))
 
     def summary(self, since: int = 0) -> dict[str, dict[str, int]]:
         """``{"phase:kind": {"calls": n, "elems": m}}`` over events recorded
-        after the ``mark()`` value ``since``."""
+        after the ``mark()`` value ``since`` (``"pattern:sync"``: the host
+        syncs of the pattern phase)."""
         out: dict[str, dict[str, int]] = {}
-        for ph, k, n in self.events[since:]:
+        for ph, k, n in self._since(since):
             ent = out.setdefault(f"{ph or 'unphased'}:{k}",
                                  {"calls": 0, "elems": 0})
             ent["calls"] += 1
@@ -136,8 +194,14 @@ class TransferStats:
         return sum(v["calls"] for k, v in (transfers or {}).items()
                    if k.endswith(":d2h") and not k.startswith("deliver:"))
 
+    @staticmethod
+    def host_syncs(transfers: dict | None) -> int:
+        """Host syncs in a ``summary()`` dict, every phase."""
+        return sum(v["calls"] for k, v in (transfers or {}).items()
+                   if k.endswith(":sync"))
 
-class KernelStats:
+
+class KernelStats(_Ledger):
     """Compiled-program launch/compile ledger — ``TransferStats``' sibling.
 
     Backends record one ``dispatch`` event per *compiled program launch*
@@ -148,31 +212,24 @@ class KernelStats:
     benchmarks can assert dispatch counts — e.g. that a fused 3-hop chain
     executes as exactly one ``fused_chain`` dispatch (DESIGN.md §8)."""
 
-    def __init__(self):
-        self.events: list[tuple[str, str, int]] = []   # (kind, label, n)
+    # events: (kind, label, n)
 
     def record(self, kind: str, label: str, n: int = 1):
         self.events.append((kind, label, int(n)))
 
-    def reset(self):
-        self.events.clear()
-
-    def mark(self) -> int:
-        return len(self.events)
-
     def count(self, kind: str, label: str | None = None,
               since: int = 0) -> int:
-        return sum(n for k, lb, n in self.events[since:]
+        return sum(n for k, lb, n in self._since(since)
                    if k == kind and (label is None or lb == label))
 
     def summary(self, since: int = 0) -> dict[str, int]:
         out: dict[str, int] = {}
-        for k, lb, n in self.events[since:]:
+        for k, lb, n in self._since(since):
             out[f"{k}:{lb}"] = out.get(f"{k}:{lb}", 0) + n
         return out
 
 
-class ExchangeStats:
+class ExchangeStats(_Ledger):
     """Cross-device collective ledger — the third sibling of
     ``TransferStats`` / ``KernelStats``, owned by distributed backends.
 
@@ -188,27 +245,20 @@ class ExchangeStats:
     single-device backends simply never record and the summary stays
     empty."""
 
-    def __init__(self):
-        self.events: list[tuple[str, str, int]] = []   # (kind, label, elems)
+    # events: (kind, label, elems)
 
     def record(self, kind: str, label: str, elems: int):
         self.events.append((kind, label, int(elems)))
 
-    def reset(self):
-        self.events.clear()
-
-    def mark(self) -> int:
-        return len(self.events)
-
     def count(self, kind: str | None = None, label: str | None = None,
               since: int = 0) -> int:
-        return sum(1 for k, lb, _ in self.events[since:]
+        return sum(1 for k, lb, _ in self._since(since)
                    if (kind is None or k == kind)
                    and (label is None or lb == label))
 
     def elems(self, kind: str | None = None, label: str | None = None,
               since: int = 0) -> int:
-        return sum(n for k, lb, n in self.events[since:]
+        return sum(n for k, lb, n in self._since(since)
                    if (kind is None or k == kind)
                    and (label is None or lb == label))
 
@@ -216,14 +266,14 @@ class ExchangeStats:
         """``{"kind:label": {"calls": n, "elems": m}}`` over events recorded
         after the ``mark()`` value ``since``."""
         out: dict[str, dict[str, int]] = {}
-        for k, lb, n in self.events[since:]:
+        for k, lb, n in self._since(since):
             ent = out.setdefault(f"{k}:{lb}", {"calls": 0, "elems": 0})
             ent["calls"] += 1
             ent["elems"] += n
         return out
 
 
-class FaultStats:
+class FaultStats(_Ledger):
     """Injected-fault ledger — the fourth sibling of ``TransferStats`` /
     ``KernelStats`` / ``ExchangeStats``, owned by fault-wrapped operator
     sets (``graphdb/faults.py``, DESIGN.md §13).
@@ -234,26 +284,19 @@ class FaultStats:
     never record and the summary stays empty, so the serving layer's
     failure accounting can always read the ledger unconditionally."""
 
-    def __init__(self):
-        self.events: list[tuple[str, str, int]] = []   # (kind, op, n)
+    # events: (kind, op, n)
 
     def record(self, kind: str, op: str, n: int = 1):
         self.events.append((kind, op, int(n)))
 
-    def reset(self):
-        self.events.clear()
-
-    def mark(self) -> int:
-        return len(self.events)
-
     def count(self, kind: str | None = None, op: str | None = None,
               since: int = 0) -> int:
-        return sum(n for k, o, n in self.events[since:]
+        return sum(n for k, o, n in self._since(since)
                    if (kind is None or k == kind) and (op is None or o == op))
 
     def summary(self, since: int = 0) -> dict[str, int]:
         out: dict[str, int] = {}
-        for k, o, n in self.events[since:]:
+        for k, o, n in self._since(since):
             out[f"{k}:{o}"] = out.get(f"{k}:{o}", 0) + n
         return out
 
@@ -301,10 +344,10 @@ class OperatorSet:
 
     def reset_ledgers(self):
         """Clear the instrumentation ledgers.  Operator sets are shared
-        per (store, backend), so the event lists grow without bound under
-        sustained traffic and a consumer that forgets its ``mark()`` reads
-        a neighbor's events; the QueryServer scopes the ledgers to one
-        wave by resetting here between waves (DESIGN.md §9)."""
+        per (store, backend), so a consumer that reads without its own
+        ``mark()`` reads a neighbor's events; the QueryServer scopes the
+        ledgers to one wave by resetting here between waves and reading
+        from a mark taken after it (DESIGN.md §9)."""
         self.transfer_stats.reset()
         self.kernel_stats.reset()
         self.exchange_stats.reset()

@@ -19,7 +19,11 @@ The engine also meters the paper's cost-model quantities: rows produced per
 operator (communication-cost analogue) and per-operator wall time
 (``ExecStats.op_rows`` / ``op_times``; on asynchronously-dispatching
 backends the per-operator times are dispatch times — the final sync is
-absorbed by delivery).
+absorbed by delivery).  The times are read off ``ExecStats.spans``: one
+span per operator, per step inside one and per phase of a run, stamped on
+``span_clock``, the clock ``torch.profiler`` gives its events, so a run's
+spans line up with a device trace.  ``ExecStats.host_syncs`` counts the
+run's host waits on the device (``TransferStats.sync``).
 
 Modes (used by the RBO ablation benchmarks):
 - ``fuse_expand``   — ExpandGetVFusionRule on/off: fused neighbor expansion vs
@@ -52,12 +56,21 @@ from repro_torch.core.errors import (DeadlineExceeded, ExecError,
 from repro_torch.core.pattern import Pattern, PatternEdge
 from repro_torch.core.physical import (ExpandChainNode, ExpandNode, JoinNode,
                                  PlanNode, ScanNode)
-from repro_torch.core.physical_spec import OperatorSet, PhysicalSpec, get_spec
+from repro_torch.core.physical_spec import (OperatorSet, PhysicalSpec,
+                                            TransferStats, get_spec)
 from repro_torch.graphdb.chain import (ChainFallback, build_chain_spec,
                                  orientations)
 from repro_torch.graphdb.storage import GraphStore
 
 INT_MIN = np.iinfo(np.int64).min
+
+# the spans' clock: ns since the epoch, the clock torch.profiler converts
+# its host and device event times to
+span_clock = time.time_ns
+
+# tail operators' span names
+_STEPS = {ir.Select: "SELECT", ir.Project: "PROJECT", ir.GroupBy: "GROUP",
+          ir.OrderBy: "ORDER", ir.Limit: "LIMIT"}
 
 _CMP = {"=": _op.eq, "<>": _op.ne, "<": _op.lt, ">": _op.gt,
         "<=": _op.le, ">=": _op.ge}
@@ -130,13 +143,14 @@ class Table:
 class ExecStats:
     rows_produced: int = 0          # paper's intermediate-result cost
     op_rows: list = dataclasses.field(default_factory=list)
-    # (opname, seconds) aligned 1:1 with op_rows; on async backends these
-    # are dispatch times (the final device sync lands in delivery/wall_s)
-    # unless the engine ran with sync_per_op=True (PROFILE SYNC)
-    op_times: list = dataclasses.field(default_factory=list)
+    # (name, start_ns, end_ns, parent) on span_clock: the run's root, its
+    # phases, one span per operator (the ``log`` sites, 1:1 with op_rows)
+    # and per step inside one; ``parent`` indexes the enclosing span (-1:
+    # none)
+    spans: list = dataclasses.field(default_factory=list)
     wall_s: float = 0.0
     # host<->device movement summary for this run ({"phase:kind": {...}}),
-    # from the backend's TransferStats ledger
+    # from the backend's TransferStats ledger; "phase:sync" counts syncs
     transfers: dict | None = None
     # compiled-program launch/compile summary ({"kind:label": n}) from the
     # backend's KernelStats ledger — e.g. {"dispatch:fused_chain": 1}
@@ -153,11 +167,58 @@ class ExecStats:
     # injected-fault summary ({"kind:op": n}) from the backend's FaultStats
     # ledger (graphdb/faults.py); None when no wrapper injected anything
     faults: dict | None = None
+    op_spans: list = dataclasses.field(default_factory=list, repr=False)
+    _open: int = dataclasses.field(default=-1, repr=False)
 
-    def log(self, opname: str, rows: int, secs: float = 0.0):
+    @property
+    def op_times(self) -> list:
+        """(opname, seconds) aligned 1:1 with op_rows, from the operators'
+        spans; on async backends these are dispatch times (the final
+        device sync lands in delivery/wall_s) unless the engine ran with
+        sync_per_op=True (PROFILE SYNC)."""
+        return [(self.spans[i][0],
+                 (self.spans[i][2] - self.spans[i][1]) * 1e-9)
+                for i in self.op_spans]
+
+    @property
+    def host_syncs(self) -> int:
+        """The run's host syncs (``TransferStats.sync``), every phase."""
+        return TransferStats.host_syncs(self.transfers)
+
+    def open(self, name: str = "", start: int | None = None) -> int:
+        """Open a span inside the innermost open one; returns its index."""
+        i = len(self.spans)
+        self.spans.append((name, span_clock() if start is None else start,
+                           0, self._open))
+        self._open = i
+        return i
+
+    def close(self, i: int, name: str | None = None):
+        """Close span ``i`` (the innermost open one), renaming it."""
+        old, start, _, parent = self.spans[i]
+        self.spans[i] = (old if name is None else name, start, span_clock(),
+                         parent)
+        self._open = parent
+
+    def end(self, i: int):
+        """Close span ``i`` unless ``log`` or ``close`` already did."""
+        if self.spans[i][2] == 0:
+            self.close(i)
+
+    def log(self, opname: str, rows: int, span: int):
+        """Close operator span ``span`` under ``opname``, with its rows."""
+        self.close(span, opname)
         self.rows_produced += rows
         self.op_rows.append((opname, rows))
-        self.op_times.append((opname, secs))
+        self.op_spans.append(span)
+
+    def fork(self) -> "ExecStats":
+        """A binding's own record, starting from this shared one (the
+        batch paths)."""
+        return ExecStats(rows_produced=self.rows_produced,
+                         op_rows=list(self.op_rows), spans=list(self.spans),
+                         fallbacks=dict(self.fallbacks),
+                         op_spans=list(self.op_spans))
 
     def fallback(self, reason: str, n: int = 1):
         self.fallbacks[reason] = self.fallbacks.get(reason, 0) + n
@@ -210,12 +271,14 @@ class Engine:
     def _table(self, cols: dict, nrows: int) -> Table:
         return Table(cols, nrows, self.ops)
 
-    def _tick(self, tbl: Table | None, t0: float) -> float:
-        """Per-operator elapsed time; under sync_per_op the device finishes
-        the operator's work before the clock is read."""
+    def _log(self, stats: ExecStats, label: str, tbl: Table | None,
+             span: int):
+        """Close an operator's span with its output rows; under
+        sync_per_op the device finishes the operator's work before the
+        clock is read."""
         if self.sync_per_op and tbl is not None and tbl.cols:
             self.ops.block_ready(tbl.cols)
-        return time.perf_counter() - t0
+        stats.log(label, tbl.nrows if tbl is not None else 0, span)
 
     def _offer_bindings(self, bound: list[dict]):
         """Present this execution's parameter bindings to the operator set
@@ -251,7 +314,7 @@ class Engine:
         raise RuntimeError(f"{exc} in {label}") from None
 
     def _scan(self, pattern: Pattern, alias: str, stats: ExecStats) -> Table:
-        t0 = time.perf_counter()
+        span = stats.open()
         v = pattern.vertices[alias]
         parts = []
         for t in sorted(v.types):
@@ -273,7 +336,7 @@ class Engine:
         ids = self.ops.concat(parts)
         tbl = self._table({alias: ids}, int(ids.shape[0]))
         tbl = self._apply_fused_predicates(tbl, v.predicates, stats)
-        stats.log(f"SCAN({alias})", tbl.nrows, self._tick(tbl, t0))
+        self._log(stats, f"SCAN({alias})", tbl, span)
         self._materialize(tbl, alias, pattern)
         return tbl
 
@@ -399,13 +462,16 @@ class Engine:
         return out
 
     def _intersect_edge(self, tbl: Table, pattern: Pattern, e: PatternEdge,
-                        from_alias: str, cand_alias: str) -> Table:
+                        from_alias: str, cand_alias: str,
+                        stats: ExecStats) -> Table:
         """Membership probe: keep rows where edge (from_alias, cand) exists;
-        bind the edge. Worst-case-optimal intersection step."""
+        bind the edge. Worst-case-optimal intersection step (a span inside
+        its operator's)."""
         st = self.store
         label = (f"INTERSECT({from_alias}-[{e.alias}]-{cand_alias})")
         if tbl.nrows == 0:
             return tbl
+        span = stats.open(label)
         outs = []
         src_ids = tbl.cols[from_alias]
         cand = tbl.cols[cand_alias]
@@ -486,6 +552,7 @@ class Engine:
             outs.append(part)
         out = Table.concat(outs)
         self._check(out.nrows, label)
+        stats.close(span)
         return out
 
     def _materialize(self, tbl: Table, alias: str, pattern: Pattern):
@@ -508,6 +575,7 @@ class Engine:
         for p in preds or []:
             if tbl.nrows == 0:
                 break
+            span = stats.open("FILTER")
             if self._batch is not None and ir.expr_params(p):
                 # batched execution: relax to the union of the per-binding
                 # masks (a stacked multi-binding filter); the exact
@@ -517,6 +585,7 @@ class Engine:
             else:
                 m = _as_mask(self._eval(tbl, p))
             tbl = tbl.mask(m)
+            stats.close(span)
         return tbl
 
     def _union_mask(self, tbl: Table, pred):
@@ -538,7 +607,7 @@ class Engine:
             return self._scan(pattern, node.alias, stats)
         if isinstance(node, ExpandNode):
             tbl = self.exec_pattern(pattern, node.child, stats)
-            t0 = time.perf_counter()
+            span = stats.open()
             edges = list(node.edges)
             # primary expansion via the first edge
             e0 = edges[0]
@@ -566,19 +635,20 @@ class Engine:
                             node.new_alias].types
                     tbl = tbl.mask(self.ops.take(self.ops.asarray(allowed),
                                                  tidx))
-                stats.log(f"GET_VERTEX({node.new_alias})", tbl.nrows,
-                          self._tick(tbl, t0))
+                self._log(stats, f"GET_VERTEX({node.new_alias})", tbl,
+                          span)
+                span = stats.open()
             # intersect the remaining edges (WCOJ step)
             for e in edges[1:]:
                 frm = e.other(node.new_alias)
                 tbl = self._intersect_edge(tbl, pattern, e, frm,
-                                           node.new_alias)
+                                           node.new_alias, stats)
             v = pattern.vertices[node.new_alias]
             tbl = self._apply_fused_predicates(tbl, v.predicates, stats)
             for e in edges:
                 tbl = self._apply_fused_predicates(tbl, e.predicates, stats)
-            stats.log(f"EXPAND(+{node.new_alias}|{len(edges)}e)", tbl.nrows,
-                      self._tick(tbl, t0))
+            self._log(stats, f"EXPAND(+{node.new_alias}|{len(edges)}e)", tbl,
+                      span)
             self._materialize(tbl, node.new_alias, pattern)
             return tbl
         if isinstance(node, ExpandChainNode):
@@ -643,7 +713,7 @@ class Engine:
         is in the fusable envelope; otherwise (and on the first, measuring
         execution of a shape) the thin-frontier per-hop loop — the parity
         oracle the fused program is held to."""
-        t0 = time.perf_counter()
+        span = stats.open()
         first = node.steps[0].from_alias
         hops = "".join(f"+{s.alias}" for s in node.steps)
         label = f"EXPANDCHAIN({hops})"
@@ -679,7 +749,7 @@ class Engine:
             if res is not None:
                 rows, cols, n = res
                 out = tbl.take(rows).with_cols(cols) if n else Table.empty()
-                stats.log(label, out.nrows, self._tick(out, t0))
+                self._log(stats, label, out, span)
                 for s in node.steps:
                     self._materialize(out, s.alias, pattern)
                 return out
@@ -699,7 +769,7 @@ class Engine:
             sizes.append(cur.nrows)     # pre-filter total = fused capacity
             for e in s.intersect_edges:
                 cur = self._intersect_edge(cur, pattern, e,
-                                           e.other(s.alias), s.alias)
+                                           e.other(s.alias), s.alias, stats)
             v = pattern.vertices[s.alias]
             cur = self._apply_fused_predicates(cur, v.predicates, stats)
             for e in s.all_edges():
@@ -707,19 +777,19 @@ class Engine:
         if prog is not None:
             prog.observe(sizes)         # fix/regrow the capacity schedule
         if cur.nrows == 0:
-            stats.log(label, 0, self._tick(None, t0))
+            self._log(stats, label, None, span)
             return Table.empty()
         rows = cur.cols.pop("__chain_row")
         del cur.cols[first]          # tbl carries the original column
         out = tbl.take(rows).with_cols(cur.cols)
-        stats.log(label, out.nrows, self._tick(out, t0))
+        self._log(stats, label, out, span)
         for s in node.steps:
             self._materialize(out, s.alias, pattern)
         return out
 
     def _exec_join(self, pattern: Pattern, node: JoinNode, lt: Table,
                    rt: Table, stats: ExecStats) -> Table:
-        t0 = time.perf_counter()
+        span = stats.open()
         # join on the shared vertex aliases plus any other column both
         # sides bound (shared edges must bind identically on both sides)
         keys = sorted(set(node.keys) |
@@ -737,7 +807,7 @@ class Engine:
             if k not in cols:
                 cols[k] = self.ops.take(v, ridx)
         out = self._table(cols, int(lidx.shape[0]))
-        stats.log(f"JOIN({'/'.join(keys)})", out.nrows, self._tick(out, t0))
+        self._log(stats, f"JOIN({'/'.join(keys)})", out, span)
         return out
 
     def _pack_join_keys(self, lt: Table, rt: Table, keys: list[str]):
@@ -868,41 +938,64 @@ class Engine:
         return ops, pattern, pattern_plan or default_left_deep_plan(pattern)
 
     def run(self, plan: ir.LogicalPlan, pattern_plan: PlanNode | None = None,
-            params: dict | None = None):
+            params: dict | None = None, stats: ExecStats | None = None,
+            setup: int | None = None):
         """Execute a logical plan; returns (result Table, ExecStats).
         ``params`` binds the plan's late-bound ``ir.Param`` nodes.  The
         returned table is host-resident: the engine converts the
         backend-native binding table with ``ops.to_host`` exactly once,
-        here at delivery — never between plan steps."""
+        here at delivery — never between plan steps.
+
+        ``stats`` is the caller's record when it has opened spans of its
+        own (``GOpt.run``), ``setup`` its open ``engine.setup`` span; the
+        engine records ``engine.setup`` (binding, marks), ``pattern``,
+        ``tail`` and ``deliver`` inside the innermost open span, or
+        inside a root ``engine.run`` of a record of its own."""
+        ts = self.ops.transfer_stats
+        root = None
+        if stats is None:
+            stats = ExecStats()
+            root = stats.open("engine.run")
+        if setup is None:
+            setup = stats.open("engine.setup")
         self._params = self.bind_params(plan, params)
         self._offer_bindings([self._params])
-        stats = ExecStats()
         t0 = time.perf_counter()
         ops, pattern, node = self._plan_head(plan, pattern_plan)
-        ts = self.ops.transfer_stats
-        ks = self.ops.kernel_stats
-        es = self.ops.exchange_stats
-        fs = self.ops.fault_stats
-        mark = ts.mark()
-        kmark = ks.mark()
-        emark = es.mark()
-        fmark = fs.mark()
-        ts.set_phase("pattern")
+        ledgers = (ts, self.ops.kernel_stats, self.ops.exchange_stats,
+                   self.ops.fault_stats)
+        marks = [ld.hold() for ld in ledgers]
         try:
+            stats.close(setup)
+            phase = self._phase(stats, "pattern")
             tbl = self.exec_pattern(pattern, node, stats)
-            ts.set_phase("tail")
+            phase = self._phase(stats, "tail", phase)
             for op in ops[1:]:
                 tbl = self._run_relational(tbl, op, stats)
-            ts.set_phase("deliver")
+            phase = self._phase(stats, "deliver", phase)
             tbl = self.ops.to_host(tbl)
+            stats.close(phase)
+            stats.wall_s = time.perf_counter() - t0
+            stats.transfers = ts.summary(marks[0])
+            stats.kernels = ledgers[1].summary(marks[1])
+            stats.exchanges = ledgers[2].summary(marks[2]) or None
+            stats.faults = ledgers[3].summary(marks[3]) or None
         finally:
             ts.set_phase("")
-        stats.wall_s = time.perf_counter() - t0
-        stats.transfers = ts.summary(mark)
-        stats.kernels = ks.summary(kmark)
-        stats.exchanges = es.summary(emark) or None
-        stats.faults = fs.summary(fmark) or None
+            for ld, m in zip(ledgers, marks):
+                ld.release(m)
+        if root is not None:
+            stats.close(root)
         return tbl, stats
+
+    def _phase(self, stats: ExecStats, phase: str,
+               prev: int | None = None) -> int:
+        """Enter ``phase``: close the previous phase's span, open this
+        one's and tag the transfer ledger."""
+        if prev is not None:
+            stats.close(prev)
+        self.ops.transfer_stats.set_phase(phase)
+        return stats.open(phase)
 
     def run_batch(self, plan: ir.LogicalPlan,
                   pattern_plan: PlanNode | None = None,
@@ -923,10 +1016,18 @@ class Engine:
         self._offer_bindings(bound)
         ops, pattern, node = self._plan_head(plan, pattern_plan)
         ts = self.ops.transfer_stats
-        mark = ts.mark()
-        kmark = self.ops.kernel_stats.mark()
-        emark = self.ops.exchange_stats.mark()
-        fmark = self.ops.fault_stats.mark()
+        ledgers = (ts, self.ops.kernel_stats, self.ops.exchange_stats,
+                   self.ops.fault_stats)
+        marks = [ld.hold() for ld in ledgers]
+        try:
+            return self._run_batch(ops, pattern, node, bound, marks)
+        finally:
+            for ld, m in zip(ledgers, marks):
+                ld.release(m)
+
+    def _run_batch(self, ops, pattern, node, bound, marks):
+        ts = self.ops.transfer_stats
+        mark, kmark, emark, fmark = marks
         shared = ExecStats()
         t0 = time.perf_counter()
         self._batch = bound
@@ -1033,16 +1134,14 @@ class Engine:
             kbind = ks.mark()
             ebind = es.mark()
             tb0 = time.perf_counter()
-            st = ExecStats(rows_produced=shared.rows_produced,
-                           op_rows=list(shared.op_rows),
-                           op_times=list(shared.op_times),
-                           fallbacks=dict(shared.fallbacks))
+            st = shared.fork()
+            span = st.open()
             if reason is not None:
                 st.fallback(reason)
             ts.set_phase("tail")
             try:
                 t = self._refilter(tbl, deferred, b)
-                st.log("BATCH_BIND", t.nrows, time.perf_counter() - tb0)
+                st.log("BATCH_BIND", t.nrows, span)
                 for op in ops[1:]:
                     t = self._run_relational(t, op, st)
                 ts.set_phase("deliver")
@@ -1085,10 +1184,8 @@ class Engine:
         kbind = ks.mark()
         ebind = es.mark()
         tb0 = time.perf_counter()
-        st = ExecStats(rows_produced=shared.rows_produced,
-                       op_rows=list(shared.op_rows),
-                       op_times=list(shared.op_times),
-                       fallbacks=dict(shared.fallbacks))
+        st = shared.fork()
+        span = st.open()
         ts.set_phase("tail")
         try:
             parts, counts = [], []
@@ -1102,7 +1199,7 @@ class Engine:
                 raise RuntimeError("stacked tail: all bindings empty")
             self._params = {}
             stacked = Table.concat(parts)
-            st.log("BATCH_BIND", stacked.nrows, time.perf_counter() - tb0)
+            st.log("BATCH_BIND", stacked.nrows, span)
             for op in ops[1:]:
                 stacked = self._run_relational_seg(stacked, op, len(bound),
                                                    st)
@@ -1121,11 +1218,8 @@ class Engine:
                 # empty bindings keep the loop path's host-side semantics
                 # (e.g. the COUNT()-over-empty fix-up) at zero device cost
                 t = Table.empty()
-                bst = ExecStats(rows_produced=shared.rows_produced,
-                                op_rows=list(shared.op_rows),
-                                op_times=list(shared.op_times),
-                                fallbacks=dict(shared.fallbacks))
-                bst.log("BATCH_BIND", 0, 0.0)
+                bst = shared.fork()
+                bst.log("BATCH_BIND", 0, bst.open())
                 for op in ops[1:]:
                     t = self._run_relational(t, op, bst)
                 if t.ops is not None:
@@ -1134,10 +1228,7 @@ class Engine:
                 m = seg == i
                 t = Table({k: v[m] for k, v in host.cols.items()},
                           int(m.sum()))
-                bst = ExecStats(rows_produced=st.rows_produced,
-                                op_rows=list(st.op_rows),
-                                op_times=list(st.op_times),
-                                fallbacks=dict(st.fallbacks))
+                bst = st.fork()
             bst.wall_s = pattern_s + tail_s
             bst.transfers = {k: dict(v) for k, v in
                              pattern_transfers.items()}
@@ -1171,12 +1262,18 @@ class Engine:
         the plain operator on that segment alone.  The stack is segment-
         major throughout (every operator preserves or re-establishes it)."""
         self._check_deadline(type(op).__name__)
-        t0 = time.perf_counter()
+        span = stats.open(_STEPS.get(type(op), ""))
+        out = self._relational_seg(tbl, op, k, stats, span)
+        stats.end(span)
+        return out
+
+    def _relational_seg(self, tbl: Table, op, k: int, stats: ExecStats,
+                        span: int) -> Table:
         seg = tbl.cols["__seg"]
         if isinstance(op, ir.Select):
             if tbl.nrows:
                 tbl = tbl.mask(_as_mask(self._eval(tbl, op.predicate)))
-            stats.log("SELECT", tbl.nrows, self._tick(tbl, t0))
+            self._log(stats, "SELECT", tbl, span)
             return tbl
         if isinstance(op, ir.Project):
             cols = {name: (self._eval(tbl, e) if tbl.nrows
@@ -1187,7 +1284,7 @@ class Engine:
             if op.distinct and out.nrows:
                 key = self.ops.combine_keys(list(out.cols.values()))
                 out = out.take(self.ops.distinct_indices(key))
-            stats.log("PROJECT", out.nrows, self._tick(out, t0))
+            self._log(stats, "PROJECT", out, span)
             return out
         if isinstance(op, ir.GroupBy):
             if tbl.nrows == 0:   # empty-input fix-ups are per-binding
@@ -1205,7 +1302,7 @@ class Engine:
             cols.update(aggd)
             cols["__seg"] = self.ops.take(seg, first)
             out = self._table(cols, int(first.shape[0]))
-            stats.log("GROUP", out.nrows, self._tick(out, t0))
+            self._log(stats, "GROUP", out, span)
             return out
         if isinstance(op, ir.OrderBy):
             if tbl.nrows == 0:
@@ -1231,12 +1328,20 @@ class Engine:
         raise RuntimeError(f"stacked tail: unsupported operator {op!r}")
 
     def _run_relational(self, tbl: Table, op, stats: ExecStats) -> Table:
+        """One tail operator in its span (closed by ``log`` where the
+        operator is logged; ORDER and LIMIT are not)."""
         self._check_deadline(type(op).__name__)
-        t0 = time.perf_counter()
+        span = stats.open(_STEPS.get(type(op), ""))
+        out = self._relational(tbl, op, stats, span)
+        stats.end(span)
+        return out
+
+    def _relational(self, tbl: Table, op, stats: ExecStats,
+                    span: int) -> Table:
         if isinstance(op, ir.Select):
             if tbl.nrows:
                 tbl = tbl.mask(_as_mask(self._eval(tbl, op.predicate)))
-            stats.log("SELECT", tbl.nrows, self._tick(tbl, t0))
+            self._log(stats, "SELECT", tbl, span)
             return tbl
         if isinstance(op, ir.Project):
             cols = {name: (self._eval(tbl, e) if tbl.nrows
@@ -1246,7 +1351,7 @@ class Engine:
             if op.distinct and out.nrows:
                 key = self.ops.combine_keys(list(out.cols.values()))
                 out = out.take(self.ops.distinct_indices(key))
-            stats.log("PROJECT", out.nrows, self._tick(out, t0))
+            self._log(stats, "PROJECT", out, span)
             return out
         if isinstance(op, ir.GroupBy):
             if tbl.nrows == 0:
@@ -1272,7 +1377,7 @@ class Engine:
                     for (e, name), kc in zip(op.keys, kcols)}
             cols.update(aggd)
             out = self._table(cols, int(first.shape[0]))
-            stats.log("GROUP", out.nrows, self._tick(out, t0))
+            self._log(stats, "GROUP", out, span)
             return out
         if isinstance(op, ir.OrderBy):
             if tbl.nrows == 0:

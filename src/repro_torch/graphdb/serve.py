@@ -37,8 +37,9 @@ Scheduling/latency mechanics:
 - **ledger scoping** — both backend instrumentation ledgers
   (``TransferStats`` / ``KernelStats``) are reset at each wave start
   (``OperatorSet.reset_ledgers``): one request's PROFILE window can never
-  report a neighboring wave's dispatches or transfers, and the ledgers
-  stay bounded under sustained traffic.
+  report a neighboring wave's dispatches or transfers.  The ledgers stay
+  bounded under sustained traffic because every run releases its holds
+  (``physical_spec._Ledger``).
 
 Failure containment (DESIGN.md §13): every wave executes under a
 containment boundary.  A failed wave is bisected to isolate the poison
@@ -540,8 +541,10 @@ class QueryServer:
             return
         pq = reqs[0].prepared
         ops = pq.spec.operators(self.gopt.store)
-        # wave-scoped ledgers: no bleed across waves, bounded growth
+        # wave-scoped ledgers: no bleed across waves; the hold keeps the
+        # wave's dispatches while each run releases its own
         ops.reset_ledgers()
+        kmark = ops.kernel_stats.hold()
         start = time.perf_counter()
         for r in reqs:
             r.start_s = start
@@ -553,22 +556,25 @@ class QueryServer:
             # whole batch against the wave's pinned snapshot
             exec_kw["snapshot"] = reqs[0].snapshot
         self._samples[key] = reqs[0].params
-        if not self.containment:
-            # uncontained (legacy) path: one failure kills the whole wave
-            # and escapes to the caller — the perf baseline
-            self._exec_group(pq, reqs, exec_kw, 0)
-            self.stats.rung_waves[0] += 1
-        else:
-            level, probe = self._breaker_pick(key)
-            outcome = {"level_failures": 0, "escalated_to": None}
-            self._contained_exec(key, pq, reqs, exec_kw, level,
-                                 self.max_retries, outcome)
-            self._breaker_report(key, level, probe, outcome)
-            self.stats.rung_waves[max(level,
-                                      outcome["escalated_to"] or 0)] += 1
-        self.stats.record_wave(key, reqs, _pow2(len(reqs)),
-                               time.perf_counter() - start,
-                               ops.kernel_stats.summary())
+        try:
+            if not self.containment:
+                # uncontained (legacy) path: one failure kills the whole
+                # wave and escapes to the caller — the perf baseline
+                self._exec_group(pq, reqs, exec_kw, 0)
+                self.stats.rung_waves[0] += 1
+            else:
+                level, probe = self._breaker_pick(key)
+                outcome = {"level_failures": 0, "escalated_to": None}
+                self._contained_exec(key, pq, reqs, exec_kw, level,
+                                     self.max_retries, outcome)
+                self._breaker_report(key, level, probe, outcome)
+                self.stats.rung_waves[max(level,
+                                          outcome["escalated_to"] or 0)] += 1
+            self.stats.record_wave(key, reqs, _pow2(len(reqs)),
+                                   time.perf_counter() - start,
+                                   ops.kernel_stats.summary(kmark))
+        finally:
+            ops.kernel_stats.release(kmark)
         self._update_hotness(key, len(reqs))
 
     def _level_kw(self, exec_kw: dict, level: int) -> dict:

@@ -30,9 +30,11 @@ Staging contracts: vertex ids, CSR offsets and property columns live on
 the device as int32 (guarded at construction and at every upload);
 ``to_host`` widens int32 to int64 (the INT32_MIN missing-property sentinel
 to INT64_MIN) and float32 to float64.  ``transfer_stats`` records every
-data movement; control-plane scalar syncs (row counts, blow-up guards) are
-not data transfers and are not recorded.  ``kernel_stats`` records one
-``dispatch:<kind>`` event per compound operator call.
+data movement, and one ``sync`` wherever the host waits for the stream:
+each value read back (row counts, blow-up guards, ``nonzero`` sizes, a
+chain's control vector), each column copied either way, each barrier.
+They are counted here, at the call, on every device.  ``kernel_stats``
+records one ``dispatch:<kind>`` event per compound operator call.
 """
 from __future__ import annotations
 
@@ -204,6 +206,7 @@ class FusedChain:
                      for v in value_lists)
         cols, order, n_valid, needed = fn(src, n, csrs, vp, ep, scal, vals)
         ops.kernel_stats.record("dispatch", "fused_chain")
+        ops.transfer_stats.sync()
         ctl = torch.cat([needed, n_valid[None]]).tolist()   # control sync
         needed_h, n_out = ctl[:-1], int(ctl[-1])
         top = max(needed_h)
@@ -299,6 +302,7 @@ class TorchOperators(OperatorSet):
         return wcoj_intersect(indptr, indices, rows, targets, pos_map, index)
 
     def block_ready(self, arrays):
+        self.transfer_stats.sync()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return arrays
@@ -311,12 +315,16 @@ class TorchOperators(OperatorSet):
                                  "staging envelope")
             a = a.astype(np.int32)
         self.transfer_stats.record("h2d", a.size)
+        if a.size:
+            self.transfer_stats.sync()    # a copy from pageable memory
         return torch.as_tensor(a).to(self.device)
 
     def asarray(self, values):
         if isinstance(values, torch.Tensor):
             if values.device != self.device:
                 self.transfer_stats.record("h2d", values.numel())
+                if values.numel():
+                    self.transfer_stats.sync()
                 return values.to(self.device)
             return values
         return self._stage(np.asarray(values))
@@ -325,6 +333,8 @@ class TorchOperators(OperatorSet):
         if not isinstance(a, torch.Tensor):
             return np.asarray(a)
         self.transfer_stats.record("d2h", a.numel())
+        if a.numel():
+            self.transfer_stats.sync()
         h = a.detach().cpu().numpy()
         if h.dtype == np.int32:
             h64 = h.astype(np.int64)
@@ -346,7 +356,10 @@ class TorchOperators(OperatorSet):
         return torch.index_select(self._col(a), 0, self._col(idx))
 
     def mask(self, a, m):
-        return self._col(a)[self._col(m)]
+        a, m = self._col(a), self._col(m)
+        if m.numel():
+            self.transfer_stats.sync()    # the output's size
+        return a[m]
 
     def concat(self, parts: list):
         if not parts:
@@ -360,6 +373,8 @@ class TorchOperators(OperatorSet):
         if m.dtype != torch.bool:
             m = m != 0
         self.kernel_stats.record("dispatch", "nonzero")
+        if m.numel():
+            self.transfer_stats.sync()    # the output's size
         return torch.nonzero(m).flatten().to(torch.int32)
 
     def full(self, n: int, value):
@@ -404,6 +419,7 @@ class TorchOperators(OperatorSet):
         sk = key[order]
         flag = torch.ones(sk.shape[0], dtype=torch.bool, device=sk.device)
         flag[1:] = sk[1:] != sk[:-1]
+        self.transfer_stats.sync()        # the mask's output size
         # the stable sort puts each key's minimal row first in its run
         return torch.sort(order[flag]).values.to(torch.int32)
 
@@ -566,6 +582,7 @@ class TorchOperators(OperatorSet):
         if rows.shape[0] == 0:
             return self._z32, self._z32, self._z32
         indptr, indices, pos, _ = self._csr_dev(csr)
+        self.transfer_stats.sync()
         total = torchops.csr_expand_total(indptr, rows)  # control-plane sync
         if max_out is not None and total > max_out:
             raise RuntimeError(f"intermediate blow-up: expansion would "
@@ -599,6 +616,7 @@ class TorchOperators(OperatorSet):
             return self._z32, self._z32
         self.kernel_stats.record("dispatch", "join")
         lorder, rorder, lo, cnt = torchops.sortmerge_bounds(lk, rk)
+        self.transfer_stats.sync()
         total = int(cnt.sum())                         # control-plane sync
         if max_out is not None and total > max_out:
             raise RuntimeError(f"intermediate blow-up: join would produce "
@@ -631,6 +649,7 @@ class TorchOperators(OperatorSet):
             raise ValueError(f"unknown aggregate {bad[0]}")
         self.kernel_stats.record("dispatch", "group")
         names = list(values)
+        self.transfer_stats.sync()        # the group count, in nonzero
         order, starts = torchops.group_boundaries(keys)
         first, outs = torchops.group_aggregate(
             order, starts, tuple(self._col(values[nm][1]) for nm in names),

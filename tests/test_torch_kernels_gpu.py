@@ -3,7 +3,9 @@ two routes on CSRs where its walk is likely to go wrong); the LM, Wide
 & Deep and the GNN smoke bundles on cuda against the CPU (Wide & Deep's
 train step too, with K4's backward; EquiformerV2 on each of its
 message-passing paths); fused graph chains (K1 probes inside) on cuda
-against the CPU; the host-staging baseline over the cuda set.  Every test here is
+against the CPU; the host-staging baseline over the cuda set; the engine's
+host-sync count against ``set_sync_debug_mode`` and its spans against the
+profiler's device clock.  Every test here is
 marked ``gpu``
 and skips itself without a card.  The file imports neither jax nor the
 reference package, so it runs on a machine that has only PyTorch:
@@ -1914,3 +1916,76 @@ def test_bounded_update_on_the_card_is_bit_equal_to_whole_tensors(card):
         runs.append(ps + st.mu + st.nu)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- engine spans and host syncs
+
+def _suite_gopt(scale: float, seed: int):
+    """The benchmark's store at a small generator scale, its suite, and
+    ``GOpt`` on cuda."""
+    from perfbench import bench, harness, system
+    spec = bench.load()
+    cell = spec["workloads"][0]
+    cfg = dict(bench.config(spec, cell["config"]), generator_scale=scale)
+    qs = harness.queries()
+    suite = [(n, qs[n]["text"], qs[n]["params"])
+             for n in bench.traffic(cell["traffic"])["queries"]]
+    return system.build(cfg, seed, None).gopt, suite, cfg["max_rows"]
+
+
+def _warned_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing calls the mode reported."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [w for w in caught if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.gpu
+def test_host_syncs_equal_the_sync_debug_modes_count(card):
+    """For each suite query, warm, the syncs ``set_sync_debug_mode``
+    reports during one ``GOpt.run`` are the run's ``host_syncs``."""
+    gopt, suite, max_rows = _suite_gopt(4.0, 2147483911)
+    for _, text, params in suite * 2:  # device caches, chain capacities
+        gopt.run(text, params, max_rows=max_rows)
+    # the mode's first use reports a sync of its own (torch.cuda, once)
+    _warned_syncs(lambda: [gopt.run(t, p, max_rows=max_rows)
+                           for _, t, p in suite])
+    diffs = {}
+    for name, text, params in suite:
+        torch.cuda.synchronize()
+        (_, st), warned = _warned_syncs(
+            lambda: gopt.run(text, params, max_rows=max_rows))
+        if len(warned) != st.host_syncs:
+            diffs[name] = (len(warned), st.host_syncs, sorted(
+                {f"{w.filename}:{w.lineno}" for w in warned}))
+    assert not diffs, diffs
+
+
+@pytest.mark.gpu
+def test_a_span_around_a_sleep_kernel_contains_it(card):
+    """Spans and the profiler's device events share one clock: a span
+    opened before ``torch.cuda._sleep`` and closed after a synchronize
+    contains the sleep kernel's device interval."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.graphdb.engine import ExecStats
+    st = ExecStats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        span = st.open("sleep")
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+        st.close(span)
+    kernels_ = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events()
+                if str(e.device_type()).endswith("CUDA")]
+    assert len(kernels_) == 1, kernels_
+    (ka, kb), (_, a, b, _) = kernels_[0], st.spans[span]
+    assert a <= ka and kb <= b, (a, ka, kb, b)
+    assert kb - ka > 0.5 * (b - a)
