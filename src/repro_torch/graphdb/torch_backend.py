@@ -21,10 +21,14 @@ the host once, at delivery (``to_host``).
   sorted-run reduction (int64 SUM, float64 AVG), ``combine_keys`` dense
   lexicographic ranks — the same row order as the numpy reference backend.
 - ``chain_program`` -> ``FusedChain``: every ``ExpandChainNode`` (planned
-  by the ``fuse_expand_chain`` physical rule) runs as ONE eager program
+  by the ``fuse_expand_chain`` physical rule) runs as ONE program
   (``torchops.build_fused_chain``) over pow2-bucketed capacities, with no
   host sync until its end and every probe inside it one ``wcoj_intersect``
-  launch — one ``dispatch:fused_chain`` per chain.
+  launch — one ``dispatch:fused_chain`` per chain.  On cuda each bucketed
+  program runs eagerly at the first dispatch of its key, is captured after
+  it as a CUDA graph (``capture:fused_chain``) and replayed at every later
+  dispatch (``replay:fused_chain``), so its kernels cost the host one
+  graph launch; on the CPU it runs eagerly.
 
 Staging contracts: vertex ids, CSR offsets and property columns live on
 the device as int32 (guarded at construction and at every upload);
@@ -45,6 +49,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.pattern import BOTH
 from repro_torch.core.physical import (ChainStep, ExpandChainNode, ExpandNode,
                                        JoinNode, PlanNode,
@@ -161,6 +166,20 @@ class FusedChain:
         return (spec.source, tuple(hops)), tuple(vprops), tuple(eprops)
 
     # -------------------------------------------------------------- dispatch
+    def _program(self, key, in_bucket: int, empties: tuple) -> "_Program":
+        """The bucketed program of ``key``, built on a miss (LRU)."""
+        prog = self._progs.get(key)
+        if prog is not None:
+            self._progs[key] = self._progs.pop(key)   # LRU touch
+            return prog
+        desc, vprops, eprops = self._build_desc()
+        prog = _Program(desc, self.caps, in_bucket, empties, vprops, eprops)
+        if len(self._progs) >= _CHAIN_PROGRAMS_PER_SHAPE:
+            self._progs.pop(next(iter(self._progs)))
+        self._progs[key] = prog
+        self.ops.kernel_stats.record("compile", "fused_chain")
+        return prog
+
     def run(self, src, nrows, scalars, value_lists, max_rows):
         """One fused dispatch; returns ``(rows, cols, n)`` with exact-size
         device columns, or ``None`` after a capacity overflow (caps regrow;
@@ -173,38 +192,19 @@ class FusedChain:
         # nothing even under NOT/OR), part of the bucketed cache key
         empties = tuple(i for i, v in enumerate(value_lists) if len(v) == 0)
         key = (self.caps, in_bucket, vb, empties)
-        entry = self._progs.get(key)
-        if entry is not None:
-            self._progs[key] = self._progs.pop(key)   # LRU touch
-        else:
-            desc, vprops, eprops = self._build_desc()
-            fn = torchops.build_fused_chain(desc, self.caps, in_bucket,
-                                            ops._chain_probe,
-                                            empty_values=empties)
-            entry = (fn, vprops, eprops)
-            if len(self._progs) >= _CHAIN_PROGRAMS_PER_SHAPE:
-                self._progs.pop(next(iter(self._progs)))
-            self._progs[key] = entry
-            ops.kernel_stats.record("compile", "fused_chain")
-        fn, vprops, eprops = entry
+        prog = self._program(key, in_bucket, empties)
         src = ops._col(src).to(torch.int32)
-        if in_bucket > n:
-            src = torch.cat([src, src.new_zeros(in_bucket - n)])
         csrs = tuple((tuple(ops._csr_dev(o.csr) for o in h.orients),
                       tuple(ops._csr_dev(p.orient.csr, probe=True)
                             for p in h.probes))
                      for h in self.spec.hops)
-        vp = tuple(ops._vprop_dev(p) for p in vprops)
+        vp = tuple(ops._vprop_dev(p) for p in prog.vprops)
         # (offsets, column): a chain runs only where the snapshot leaves its
         # triples untouched, so its edges are all base edges
-        ep = tuple(ops._eprop_dev(p)[:2] for p in eprops)
-        scal = ops.asarray(np.asarray(list(scalars), dtype=np.int32))
-        # eager code needs no static IN-set shapes: each list goes up as
-        # it is (an empty one is a dead argument of its static variant)
-        vals = tuple(ops.asarray(np.asarray(v if len(v) else [0],
-                                            dtype=np.int32))
-                     for v in value_lists)
-        cols, order, n_valid, needed = fn(src, n, csrs, vp, ep, scal, vals)
+        ep = tuple(ops._eprop_dev(p)[:2] for p in prog.eprops)
+        prog.stage(ops, src, n, (csrs, vp, ep), scalars, value_lists,
+                   in_bucket, vb)
+        cols, order, n_valid, needed = prog.launch(ops)
         ops.kernel_stats.record("dispatch", "fused_chain")
         ops.transfer_stats.sync()
         ctl = torch.cat([needed, n_valid[None]]).tolist()   # control sync
@@ -222,11 +222,177 @@ class FusedChain:
         if any(a > c for a, c in zip(needed_h, self.caps)):
             self.observe(needed_h)
             return None
+        # copied out of the program's buffers before any other replay
         keep = order[:n_out]
         rows = cols["__rows"][keep]
         out = {k: v[keep] for k, v in cols.items()
                if k not in ("__rows", self.spec.source)}
+        # an eager run's outputs go before a capture allocates the graph's
+        # own, so the two never hold memory at once
+        del cols, order, n_valid, needed, keep
+        prog.capture(ops)
         return rows, out, n_out
+
+
+def _read_tensors(inputs) -> tuple:
+    """The device tensors a chain program reads by address: each
+    orientation's ``(indptr, indices, pos)`` (its search index is not
+    read), each probe's four, and the property columns."""
+    csrs, vp, ep = inputs
+    return (tuple(t for orients, _ in csrs for o in orients for t in o[:3])
+            + tuple(t for _, probes in csrs for p in probes for t in p)
+            + tuple(vp) + tuple(t for e in ep for t in e))
+
+
+class _Program:
+    """One bucketed program of a chain shape: the function
+    (``torchops.build_fused_chain``), the property columns it reads, and
+    the static buffers it reads its run values from.
+
+    Before each run ``stage`` writes the run's values into buffers the
+    program owns: the source column padded to its bucket with zeros, the
+    source count ``n0`` as a device scalar, and the scalar slots and
+    IN-sets (each sorted, padded to its bucket by repeating its largest
+    value) packed in one int32 buffer that one staging copy fills.  The
+    program reads the CSR, search-index and property tensors by address:
+    it keeps them (``refs``), and binds fresh buffers, dropping any graph,
+    when the device caches return other objects.
+
+    On cuda the first run of a key runs eagerly and, once its outputs are
+    copied out, the program is captured as one CUDA graph, which every
+    later run replays; a run that overflows its capacities is not captured
+    (they regrow).  On the CPU every run is eager.  ``launches`` and
+    ``n_probes`` are the host-side counts the captured program made
+    (``kernels.LAUNCHES``, ``probe:fused_chain``): the capture takes its
+    launches back out of ``LAUNCHES``, since it ran nothing, and each
+    replay adds them.  The set dispatches from one thread
+    at a time (the server's one worker), so the counts ``LAUNCHES`` gained
+    during a capture are the capture's.  A key whose capture fails runs
+    eagerly until it is bound anew (``capture_failed:fused_chain``;
+    ``capture_error`` keeps the error)."""
+
+    def __init__(self, desc: tuple, caps: tuple, in_bucket: int,
+                 empties: tuple, vprops: tuple, eprops: tuple):
+        self.fn = torchops.build_fused_chain(desc, caps, in_bucket,
+                                             self.probe,
+                                             empty_values=empties)
+        self.vprops = vprops
+        self.eprops = eprops
+        self.probes = 0
+        self.refs: tuple | None = None
+        self.args: tuple | None = None
+        self.packed = None
+        self.graph = None
+        self.outs = None
+        self.launches: dict = {}
+        self.n_probes = 0
+        self.capture_error: str | None = None
+
+    def probe(self, *args):
+        """A membership probe inside the program: one ``wcoj_intersect``
+        launch on the card (the plain version on the CPU), counted as
+        ``probe:fused_chain`` beside the ``dispatch:intersect`` of the
+        per-operator probes."""
+        self.probes += 1
+        return wcoj_intersect(*args)
+
+    def _bind(self, ops, inputs, n_scalars: int, vb: tuple, in_bucket: int):
+        """Fresh static buffers over ``inputs``; any graph goes."""
+        dev = ops.device
+        self.graph = self.outs = self.capture_error = None
+        self.refs = _read_tensors(inputs)
+        packed = torch.zeros(n_scalars + sum(vb), dtype=torch.int32,
+                             device=dev)
+        vals, at = [], n_scalars
+        for b in vb:
+            vals.append(packed[at:at + b])
+            at += b
+        self.args = (torch.zeros(in_bucket, dtype=torch.int32, device=dev),
+                     torch.zeros((), dtype=torch.int64, device=dev),
+                     *inputs, packed[:n_scalars], tuple(vals))
+        self.packed = packed
+
+    def stage(self, ops, src, n: int, inputs, scalars, value_lists,
+              in_bucket: int, vb: tuple):
+        """Write this run's values into the static buffers (made anew, and
+        any graph dropped, when the inputs' tensors are other objects)."""
+        refs = _read_tensors(inputs)
+        if self.refs is None or len(refs) != len(self.refs) or any(
+                a is not b for a, b in zip(refs, self.refs)):
+            self._bind(ops, inputs, len(scalars), vb, in_bucket)
+        src_buf, n0 = self.args[:2]
+        src_buf[:n].copy_(src)
+        if n < src_buf.shape[0]:
+            src_buf[n:].zero_()
+        n0.fill_(n)
+        host = np.zeros(self.packed.shape[0], dtype=np.int32)
+        host[:len(scalars)] = scalars
+        at = len(scalars)
+        for v, b in zip(value_lists, vb):
+            if len(v):
+                s = np.sort(np.asarray(v, dtype=np.int32))
+                host[at:at + len(s)] = s
+                host[at + len(s):at + b] = s[-1]
+            at += b
+        ops.transfer_stats.record("h2d", host.size)
+        if host.size:
+            ops.transfer_stats.sync()     # a copy from pageable memory
+            self.packed.copy_(torch.from_numpy(host))
+
+    def capture(self, ops):
+        """On cuda, capture the program once, on the set's side stream into
+        the set's graph pool; a failure is kept and counted, and the key
+        stays eager."""
+        if (self.graph is not None or self.capture_error is not None
+                or ops.device.type != "cuda"):
+            return
+        pool, side = ops._graph_pool()
+        cur = torch.cuda.current_stream(ops.device)
+        before, p0 = dict(kernels.LAUNCHES), self.probes
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.device(ops.device), torch.cuda.stream(side):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    outs = self.fn(*self.args)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as exc:
+            self.capture_error = f"{type(exc).__name__}: {exc}"[:500]
+            ops.kernel_stats.record("capture_failed", "fused_chain")
+            ops._graphs = None          # later captures take a fresh pool
+            return
+        finally:
+            cur.wait_stream(side)
+            # the capture launched nothing: its counts go to the replays
+            self.launches = {k: v - before.get(k, 0)
+                             for k, v in kernels.LAUNCHES.items()
+                             if v != before.get(k, 0)}
+            for k, v in self.launches.items():
+                kernels.LAUNCHES[k] -= v
+            self.n_probes = self.probes - p0
+        self.graph, self.outs = graph, outs
+        ops.kernel_stats.record("capture", "fused_chain")
+
+    def launch(self, ops):
+        """The program's outputs over the staged buffers: replayed from its
+        graph, or run eagerly."""
+        if self.graph is not None:
+            self.graph.replay()
+            ops.kernel_stats.record("replay", "fused_chain")
+            if self.n_probes:
+                ops.kernel_stats.record("probe", "fused_chain",
+                                        self.n_probes)
+            for k, v in self.launches.items():
+                kernels.LAUNCHES[k] = kernels.LAUNCHES.get(k, 0) + v
+            return self.outs
+        p0 = self.probes
+        out = self.fn(*self.args)
+        if self.probes > p0:
+            ops.kernel_stats.record("probe", "fused_chain", self.probes - p0)
+        return out
 
 
 class TorchOperators(OperatorSet):
@@ -257,6 +423,10 @@ class TorchOperators(OperatorSet):
         self._epoch = getattr(store, "compaction_epoch", 0)
         self._z32 = torch.zeros(0, dtype=torch.int32, device=self.device)
         self._chains = {}     # (chain signature, csr ids) -> FusedChain
+        # on cuda: the graph pool every chain graph of the set shares (one
+        # stream replays them one at a time) and the stream they are
+        # captured on; made at the first capture
+        self._graphs = None
 
     # ---------------------------------------------------------- fused chains
     @staticmethod
@@ -293,13 +463,26 @@ class TorchOperators(OperatorSet):
         prog.pinned = bool(pinned)
         return True
 
-    def _chain_probe(self, indptr, indices, rows, targets, pos_map, index):
-        """A membership probe inside a fused chain: one ``wcoj_intersect``
-        kernel launch on the card (the plain version on the CPU), counted
-        as ``probe:fused_chain`` beside the ``dispatch:intersect`` of the
-        per-operator probes."""
-        self.kernel_stats.record("probe", "fused_chain")
-        return wcoj_intersect(indptr, indices, rows, targets, pos_map, index)
+    def _graph_pool(self):
+        """``(pool, side stream)`` of the set's chain graphs.  A one-node
+        graph captured into the pool first stays with the set, so the pool
+        stays live while every chain graph in it is dropped and captured
+        anew (the allocator shares only a pool some graph still holds)."""
+        if self._graphs is None:
+            cur = torch.cuda.current_stream(self.device)
+            with torch.cuda.device(self.device):
+                pool = torch.cuda.graph_pool_handle()
+                side = torch.cuda.Stream(self.device)
+                anchor = torch.cuda.CUDAGraph()
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    anchor.capture_begin(pool=pool,
+                                         capture_error_mode="thread_local")
+                    held = torch.zeros(1, device=self.device)
+                    anchor.capture_end()
+                cur.wait_stream(side)
+            self._graphs = (pool, side, anchor, held)
+        return self._graphs[:2]
 
     def block_ready(self, arrays):
         self.transfer_stats.sync()

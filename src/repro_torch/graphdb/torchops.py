@@ -218,6 +218,18 @@ def take_clip(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a[idx.clamp(0, n - 1)]
 
 
+def sorted_isin(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``torch.isin(x, s)`` for a non-empty ascending ``s``, with no host
+    sync: each ``x`` is looked up with ``searchsorted`` and compared with
+    the value found there.  ``torch.isin`` on CUDA sorts through ``_unique``
+    once ``s`` outgrows a size heuristic, and that syncs, so a captured
+    program cannot use it."""
+    dt = torch.promote_types(x.dtype, s.dtype)
+    x, s = x.to(dt), s.to(dt)
+    i = torch.searchsorted(s, x).clamp(max=s.shape[0] - 1)
+    return s[i] == x
+
+
 def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
                       empty_values: tuple = ()):
     """The whole-chain function of one static chain shape.
@@ -233,7 +245,13 @@ def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
     a binary search by degree, the kernel searches the CSR at any
     degree).  ``csrs[k]`` holds each hop's ``(indptr, indices, pos,
     index)`` per orientation and per probe; a probe's ``index`` is the
-    CSR's search index."""
+    CSR's search index.
+
+    The program reads no run value on the host: ``n0``, the source count,
+    may be a Python int or a device scalar, and each IN-set arrives sorted
+    ascending (padded to any length by repeating one of its values), so
+    membership is ``sorted_isin``.  It has no host sync at all and can be
+    captured as a CUDA graph."""
     source_col, hops = desc
 
     def eval_ref(ref, cols, vprops, eprops):
@@ -263,7 +281,7 @@ def build_fused_chain(desc: tuple, caps: tuple, in_bucket: int, probe,
             if vidx in empty_values:     # static: empty IN-set matches nothing
                 return torch.zeros(lhs.shape, dtype=torch.bool,
                                    device=lhs.device)
-            return torch.isin(lhs, values[vidx])
+            return sorted_isin(lhs, values[vidx])
         if kind == "not":
             return ~eval_pred(sig[1][0], cols, scalars, values, vprops,
                               eprops)
