@@ -3,11 +3,18 @@
 A cell names a configuration and a traffic mix; the configuration's file
 is ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives), the mix's
 is ``traffic/<traffic>.json``, and each metric's reader is
-``metrics/<metric name>.py``.  Adding a cell, a mix or a metric adds files
-and entries; no file here changes.
+``metrics/<metric name>.py``.  The configuration's optional ``"system"``
+key names the module ``perfbench/<system>.py`` that builds the system
+under test (``build(config, seed, device)``; default ``system``), and the
+mix's optional ``"driver"`` key the module ``perfbench/<driver>.py`` that
+drives it and checks what it answered (``run``, ``check`` and
+``control_record``; default ``closed_loop``).
+Adding a cell, a mix, a system, a driver or a metric adds files and
+entries; no file here changes.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import re
@@ -60,3 +67,8 @@ def reader(metric_name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def module(name: str):
+    """The module ``perfbench/<name>.py`` (a system or a driver)."""
+    return importlib.import_module(f"perfbench.{name}")

@@ -8,7 +8,8 @@ from the seed, one query after another, each answer delivered to the
 host before the next query is sent, until ``seconds`` have passed; the
 query running then completes.  A query that stops at the engine's blow-up
 guard counts as failed; any other exception ends the run.  Traffic keys:
-``queries`` (names in ``queries.json``), ``warm_passes``.
+``queries`` (names in ``queries.json``), ``warm_passes``.  Answers are
+checked by ``check.run_check``; the control is ``check.control_record``.
 """
 from __future__ import annotations
 
@@ -17,18 +18,10 @@ import time
 
 import numpy as np
 
+from perfbench.check import answer_key, binding_key
+from perfbench.check import control_record, run_check as check  # noqa: F401
+
 GUARD = "intermediate blow-up"
-
-
-def answer_key(cols: dict) -> tuple:
-    """An answer's columns as a hashable key (equal answers, one key)."""
-    arrays = {k: np.asarray(v) for k, v in cols.items()}
-    return tuple((k, a.dtype.str, a.tobytes())
-                 for k, a in sorted(arrays.items()))
-
-
-def answer_cols(key: tuple) -> dict:
-    return {k: np.frombuffer(b, dtype=np.dtype(dt)) for k, dt, b in key}
 
 
 def run(system, config: dict, traffic: dict, queries: dict, seed: int,
@@ -37,6 +30,7 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
     kw = {"max_rows": config["max_rows"]}
     suite = [(n, queries[n]["text"], queries[n]["params"])
              for n in traffic["queries"]]
+    bkeys = {n: binding_key(params) for n, _, params in suite}
     before = collections.Counter(gopt.compile_counters)
     prepare_ms = []
     for _, text, params in suite:
@@ -53,10 +47,11 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
                     raise
     system.sync()
     rng = np.random.default_rng([seed, 2])
-    # per query: distinct answer -> how many times it came (None: failed)
-    answers: dict[str, collections.Counter] = {
-        n: collections.Counter() for n, _, _ in suite}
-    spent = dict.fromkeys(answers, 0.0)
+    # per (query, bindings): distinct answer -> how many times it came
+    # (None: failed)
+    answers: dict[tuple, collections.Counter] = {
+        (n, bkeys[n]): collections.Counter() for n, _, _ in suite}
+    spent = {n: 0.0 for n, _, _ in suite}
     slices: list[int] = []          # queries done by each whole second
     errors: list[str] = []
     attempted = done = rows = 0
@@ -72,13 +67,13 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
             with rec.span(f"query {name}"):
                 try:
                     tbl, st = gopt.run(text, params, **kw)
-                    answers[name][answer_key(tbl.cols)] += 1
+                    answers[name, bkeys[name]][answer_key(tbl.cols)] += 1
                     rows += st.rows_produced
                     done += 1
                 except RuntimeError as exc:
                     if GUARD not in str(exc):
                         raise
-                    answers[name][None] += 1
+                    answers[name, bkeys[name]][None] += 1
                     errors.append(f"{name}: {str(exc)[:200]}")
             t1 = time.perf_counter()
             spent[name] += t1 - t0
@@ -98,5 +93,5 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
             "notes": {"errors": errors[:5], "compile_stages": stages,
                       "queries_by_second": slices,
                       "ms_per_query": {
-                n: 1e3 * spent[n] / max(1, sum(answers[n].values()))
+                n: 1e3 * spent[n] / max(1, sum(answers[n, bkeys[n]].values()))
                 for n in spent}}}

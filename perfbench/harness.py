@@ -1,5 +1,7 @@
 """One run of one cell: build the system, drive the window, read the
-metrics, check the answers, and assemble the result line."""
+metrics, check the answers, and assemble the result line.  The system
+and the driver are the modules the configuration and the mix name
+(``bench.module``)."""
 from __future__ import annotations
 
 import gc
@@ -7,7 +9,7 @@ import json
 import sys
 import time
 
-from perfbench import bench, check, closed_loop, snb, system
+from perfbench import bench, snb
 from perfbench.trace import Recorder
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -23,6 +25,12 @@ def forbidden_modules() -> list[str]:
     package's (compared whole: ``repro_torch`` is not ``repro``)."""
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
+
+
+def driver(traffic: dict):
+    """The mix's driver module (``run``, ``check``, ``control_record``);
+    with no ``"driver"`` key, the closed loop."""
+    return bench.module(traffic.get("driver", "closed_loop"))
 
 
 def device_record(device: str | None, trace_summary) -> dict:
@@ -55,8 +63,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         (cfg if key in cfg else trf)[key] = value
     qs = queries()
     rec = Recorder(trace)
-    sut = system.build(cfg, seed, device)
-    record = closed_loop.run(sut, cfg, trf, qs, seed, seconds, rec)
+    drv = driver(trf)
+    sut = bench.module(cfg.get("system", "system")).build(cfg, seed, device)
+    record = drv.run(sut, cfg, trf, qs, seed, seconds, rec)
     record["setup_s"] = rec.first_timed - t_process
     record["glogue_s"] = sut.glogue_s
     record["generate_s"] = sut.generate_s
@@ -72,7 +81,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     del sut            # the program's state goes before the reference runs
     gc.collect()
     t0 = time.perf_counter()
-    checks, notes = check.run_check(record, raw, qs)
+    checks, notes = drv.check(record, raw, qs)
     notes["reference_s"] = time.perf_counter() - t0
     notes["window_s"] = record["window_s"]
     notes["generate_s"] = record["generate_s"]
@@ -90,17 +99,18 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
 
 
 def run_control(cell_name: str, seed: int) -> dict:
-    """The control in the system's place (``check.control_record``),
-    through the same comparison."""
+    """The control in the system's place (the driver's
+    ``control_record``), through the same comparison."""
     spec = bench.load()
     cell = bench.cell(spec, cell_name)
     cfg = bench.config(spec, cell["config"])
     trf = bench.traffic(cell["traffic"])
     qs = queries()
+    drv = driver(trf)
     raw = snb.generate(cfg["generator_scale"], seed)
     t0 = time.perf_counter()
-    record = check.control_record(raw, trf, qs)
-    checks, notes = check.run_check(record, raw, qs)
+    record = drv.control_record(raw, trf, qs, seed)
+    checks, notes = drv.check(record, raw, qs)
     return {"control": True, "cell": cell_name, "seed": seed,
             "correct": all(v <= lim for _, v, lim in checks),
             "seconds": time.perf_counter() - t0, "notes": notes,

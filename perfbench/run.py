@@ -10,9 +10,9 @@ Prints one JSON line last on standard output: ``correct``, ``attempted``,
 (also the last lines on standard error).  Exits non-zero without a result
 when no CUDA card is there, or when JAX or the JAX package was loaded.
 
-``--control 1`` runs the cell's control instead (``check.control_record``:
-the reference in the system's place with one guarantee broken); it needs
-no card and must come out not correct.
+``--control 1`` runs the cell's control instead (its driver's
+``control_record``: the reference in the system's place with one
+guarantee broken); it needs no card and must come out not correct.
 """
 import os
 import time

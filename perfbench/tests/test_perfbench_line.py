@@ -1,13 +1,14 @@
 """A run's result line, its imports, and the controls.
 
-The closed loop runs a short window on the CPU at generator scale 0.5;
+Each cell's driver runs a short window on the CPU at generator scale 0.5;
 the line must carry exactly the contract's keys, ``checks`` last.
 Nothing the run loads may be JAX or the JAX package (checked in a fresh
 process); the reference loads nothing of the port; without a card
 ``run.py`` exits non-zero and prints no result.  Each cell's control (the
-reference with one guarantee broken) and each fault planted under the
-timed path must come out not correct, and a failure other than the
-engine's guard must end the run.
+reference with one guarantee broken, from the cell's driver) and each
+fault planted under the timed path that the cell's driver can meet must
+come out not correct, and a failure other than the engine's guard must
+end the run.
 """
 import json
 import subprocess
@@ -17,7 +18,7 @@ import _paths  # noqa: F401
 import numpy as np
 import pytest
 
-from perfbench import bench, check, harness, snb
+from perfbench import bench, harness, snb
 
 SF, SEED = 0.5, 5
 ROOT = _paths.ROOT
@@ -95,18 +96,23 @@ def test_run_without_a_card_exits_nonzero_and_prints_no_result():
     assert "correct" not in out.stdout
 
 
+def _traffic(cell):
+    return bench.traffic(bench.cell(bench.load(), cell)["traffic"])
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell):
-    trf = bench.traffic(bench.cell(bench.load(), cell)["traffic"])
+    trf = _traffic(cell)
+    drv = harness.driver(trf)
     raw = snb.generate(SF, SEED)
     qs = harness.queries()
-    checks, _ = check.run_check(check.control_record(raw, trf, qs), raw, qs)
+    checks, _ = drv.check(drv.control_record(raw, trf, qs, SEED), raw, qs)
     assert any(v > lim for _, v, lim in checks), checks
 
 
 def _alter_answers(monkeypatch):
     """An answer altered where it is produced: every integer column the
-    engine delivers, one larger."""
+    engine delivers, one larger (one binding's run or a batch's)."""
     from repro_torch.graphdb import engine
 
     def bump(tbl):
@@ -116,9 +122,11 @@ def _alter_answers(monkeypatch):
                 tbl.cols[k] = a + 1
         return tbl
 
-    run = engine.Engine.run
+    run, run_batch = engine.Engine.run, engine.Engine.run_batch
     monkeypatch.setattr(engine.Engine, "run", lambda self, *a, **k: (
         lambda r: (bump(r[0]), r[1]))(run(self, *a, **k)))
+    monkeypatch.setattr(engine.Engine, "run_batch", lambda self, *a, **k: [
+        (bump(t), st) for t, st in run_batch(self, *a, **k)])
 
 
 def _fail_half(monkeypatch, message="intermediate blow-up: planted",
@@ -138,8 +146,15 @@ def _fail_half(monkeypatch, message="intermediate blow-up: planted",
     return calls
 
 
-@pytest.mark.parametrize("fault", [_alter_answers, _fail_half])
-@pytest.mark.parametrize("cell", CELLS)
+# the faults each driver's timed path can have; a later cell's driver
+# keeps the faults only it can meet in a test file of its own
+FAULTS = {"closed_loop": [_alter_answers, _fail_half]}
+
+
+@pytest.mark.parametrize("cell,fault", [
+    pytest.param(c, f, id=f"{c}-{f.__name__}") for c in CELLS
+    for f in FAULTS.get(_traffic(c).get("driver", "closed_loop"),
+                        [_alter_answers])])
 def test_a_fault_under_the_timed_path_is_not_correct(cell, fault,
                                                      monkeypatch):
     fault(monkeypatch)
@@ -147,16 +162,45 @@ def test_a_fault_under_the_timed_path_is_not_correct(cell, fault,
     assert not line["correct"], line["checks"]
 
 
+def _fail_in_window(monkeypatch, message):
+    """Once the driver's set-up has ended (the recorder's window start),
+    every second engine run or batch fails at once with ``message``.
+    Returns the calls made and the count when the window started."""
+    from repro_torch.graphdb import engine
+    from perfbench import trace
+    calls, warm = [], []
+    start = trace.Recorder.window_starts
+
+    def mark(self):
+        warm.append(len(calls))
+        start(self)
+
+    def half(f):
+        def run(self, *a, **k):
+            calls.append(1)
+            if warm and (len(calls) - warm[0]) % 2:
+                raise RuntimeError(message)
+            return f(self, *a, **k)
+        return run
+
+    monkeypatch.setattr(trace.Recorder, "window_starts", mark)
+    for name in ("run", "run_batch"):
+        monkeypatch.setattr(engine.Engine, name,
+                            half(getattr(engine.Engine, name)))
+    return calls, warm
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_failure_other_than_the_guard_ends_the_run(cell, monkeypatch):
-    """In the window (set-up's warm passes run clean)."""
-    trf = bench.traffic(bench.cell(bench.load(), cell)["traffic"])
-    warm = len(trf["queries"]) * trf["warm_passes"]
-    calls = _fail_half(monkeypatch, "CUDA error: an illegal memory access",
-                       after=warm)
+    """In the window (the driver's set-up runs clean)."""
+    trf = _traffic(cell)
+    calls, warm = _fail_in_window(monkeypatch,
+                                  "CUDA error: an illegal memory access")
     with pytest.raises(RuntimeError, match="illegal memory access"):
         _run(cell)
-    assert len(calls) > warm
+    assert warm and len(calls) > warm[0]
+    if "warm_passes" in trf:        # the closed loop: one run a query
+        assert warm[0] == len(trf["queries"]) * trf["warm_passes"]
 
 
 def test_trace_summary_covers_the_traced_part_and_names_idle_spans():

@@ -69,6 +69,10 @@ def test_harness_finds_the_cell_its_config_mix_and_metrics(cell):
     qs = harness.queries()
     for name in trf["queries"]:
         assert name in qs
+    assert callable(bench.module(cfg.get("system", "system")).build)
+    drv = harness.driver(trf)
+    for fn in ("run", "check", "control_record"):
+        assert callable(getattr(drv, fn))
 
 
 def test_each_config_file_is_under_paths_and_its_own():
