@@ -3,12 +3,22 @@
 A cell names a configuration and a traffic mix; the configuration's file
 is ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives), the mix's
 is ``traffic/<traffic>.json``, and each metric's reader is
-``metrics/<metric name>.py``.  The configuration's optional ``"system"``
-key names the module ``perfbench/<system>.py`` that builds the system
-under test (``build(config, seed, device)``; default ``system``), and the
-mix's optional ``"driver"`` key the module ``perfbench/<driver>.py`` that
-drives it and checks what it answered (``run``, ``check`` and
-``control_record``; default ``closed_loop``).
+``metrics/<metric name>.py`` (``read(run)``: a number, or None where the
+run has nothing to read).
+
+The configuration's optional ``"system"`` key names the module
+``perfbench/<system>.py`` of the system under test (default ``system``):
+``data(config, seed)`` makes the raw data it serves from the seed (the
+control and the reference are built on the same), ``build(config, seed,
+device)`` builds the system over it, keeping that data as ``raw``, and
+``CPU_SIZES`` holds the configuration keys that shrink it for the CPU
+tests.  The mix's optional ``"queries_file"`` key names its queries, a
+path under ``perfbench/`` (default ``queries.json``), and its optional
+``"driver"`` key the module ``perfbench/<driver>.py`` that drives the
+system and checks what it answered (default ``closed_loop``): ``run``,
+whose record carries ``latencies_ms``, one time from send to answer per
+request completed in the window; ``check`` and ``control_record``, which
+take the system's ``raw``, whatever its type.
 Adding a cell, a mix, a system, a driver or a metric adds files and
 entries; no file here changes.
 """

@@ -7,9 +7,11 @@ fused).  The window runs passes, each a permutation of the suite drawn
 from the seed, one query after another, each answer delivered to the
 host before the next query is sent, until ``seconds`` have passed; the
 query running then completes.  A query that stops at the engine's blow-up
-guard counts as failed; any other exception ends the run.  Traffic keys:
-``queries`` (names in ``queries.json``), ``warm_passes``.  Answers are
-checked by ``check.run_check``; the control is ``check.control_record``.
+guard counts as failed; any other exception ends the run.  Each query
+completed adds its time from send to answer to ``latencies_ms``.  Traffic
+keys: ``queries`` (names in the mix's queries file), ``warm_passes``.
+Answers are checked by ``check.run_check``; the control is
+``check.control_record``.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
         (n, bkeys[n]): collections.Counter() for n, _, _ in suite}
     spent = {n: 0.0 for n, _, _ in suite}
     slices: list[int] = []          # queries done by each whole second
+    latencies_ms: list[float] = []
     errors: list[str] = []
     attempted = done = rows = 0
     rec.start()
@@ -76,6 +79,8 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
                     answers[name, bkeys[name]][None] += 1
                     errors.append(f"{name}: {str(exc)[:200]}")
             t1 = time.perf_counter()
+            if len(latencies_ms) < done:        # it was answered
+                latencies_ms.append((t1 - t0) * 1e3)
             spent[name] += t1 - t0
             rec.progress(t1 - t_start, done)
             while len(slices) < int(t1 - t_start):
@@ -88,7 +93,7 @@ def run(system, config: dict, traffic: dict, queries: dict, seed: int,
     return {"window_s": window_s,
             "attempted": attempted, "failed": attempted - done,
             "queries_done": done, "rows_produced": rows,
-            "prepare_ms": prepare_ms,
+            "prepare_ms": prepare_ms, "latencies_ms": latencies_ms,
             "answers": answers,
             "notes": {"errors": errors[:5], "compile_stages": stages,
                       "queries_by_second": slices,

@@ -1,7 +1,7 @@
 """One run of one cell: build the system, drive the window, read the
 metrics, check the answers, and assemble the result line.  The system
 and the driver are the modules the configuration and the mix name
-(``bench.module``)."""
+(``bench.module``), and the queries come from the mix's queries file."""
 from __future__ import annotations
 
 import gc
@@ -9,15 +9,17 @@ import json
 import sys
 import time
 
-from perfbench import bench, snb
+from perfbench import bench
 from perfbench.trace import Recorder
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
-def queries() -> dict:
-    return json.loads((bench.BENCH_DIR / "queries.json").read_text())[
-        "queries"]
+def queries(traffic: dict | None = None) -> dict:
+    """The queries of the mix's ``"queries_file"`` (a path under
+    ``perfbench/``; ``queries.json`` without the key or a mix)."""
+    name = (traffic or {}).get("queries_file", "queries.json")
+    return json.loads((bench.BENCH_DIR / name).read_text())["queries"]
 
 
 def forbidden_modules() -> list[str]:
@@ -25,6 +27,12 @@ def forbidden_modules() -> list[str]:
     package's (compared whole: ``repro_torch`` is not ``repro``)."""
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
+
+
+def system(config: dict):
+    """The configuration's system module (``data``, ``build``,
+    ``CPU_SIZES``); with no ``"system"`` key, ``system``."""
+    return bench.module(config.get("system", "system"))
 
 
 def driver(traffic: dict):
@@ -48,6 +56,18 @@ def device_record(device: str | None, trace_summary) -> dict:
     return out
 
 
+def _setup(cell_name: str, sizes: dict | None):
+    """The spec, the cell's configuration and its mix, with ``sizes``
+    (keys of the configuration or the mix) replaced."""
+    spec = bench.load()
+    cell = bench.cell(spec, cell_name)
+    cfg = bench.config(spec, cell["config"])
+    trf = bench.traffic(cell["traffic"])
+    for key, value in (sizes or {}).items():
+        (cfg if key in cfg else trf)[key] = value
+    return spec, cfg, trf
+
+
 def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
              t_process: float, device: str | None = None,
              sizes: dict | None = None) -> dict:
@@ -55,16 +75,11 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     the ``time.perf_counter`` clock).  ``device="cpu"`` and ``sizes``
     (keys of the configuration and the traffic file replaced) are for the
     CPU tests; a run on the card takes neither."""
-    spec = bench.load()
-    cell = bench.cell(spec, cell_name)
-    cfg = bench.config(spec, cell["config"])
-    trf = bench.traffic(cell["traffic"])
-    for key, value in (sizes or {}).items():
-        (cfg if key in cfg else trf)[key] = value
-    qs = queries()
+    spec, cfg, trf = _setup(cell_name, sizes)
+    qs = queries(trf)
     rec = Recorder(trace)
     drv = driver(trf)
-    sut = bench.module(cfg.get("system", "system")).build(cfg, seed, device)
+    sut = system(cfg).build(cfg, seed, device)
     record = drv.run(sut, cfg, trf, qs, seed, seconds, rec)
     record["setup_s"] = rec.first_timed - t_process
     record["glogue_s"] = sut.glogue_s
@@ -85,6 +100,10 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     notes["reference_s"] = time.perf_counter() - t0
     notes["window_s"] = record["window_s"]
     notes["generate_s"] = record["generate_s"]
+    lat = record["latencies_ms"]
+    p99 = bench.reader("latency_p99_ms")(record)
+    notes["latency_samples"] = len(lat)
+    notes["latency_beyond_p99"] = sum(x > p99 for x in lat)
     if trace:
         notes["trace_read_s"] = rec.stop_s
     notes.update(record.get("notes", {}))
@@ -98,16 +117,15 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     return line
 
 
-def run_control(cell_name: str, seed: int) -> dict:
+def run_control(cell_name: str, seed: int,
+                sizes: dict | None = None) -> dict:
     """The control in the system's place (the driver's
-    ``control_record``), through the same comparison."""
-    spec = bench.load()
-    cell = bench.cell(spec, cell_name)
-    cfg = bench.config(spec, cell["config"])
-    trf = bench.traffic(cell["traffic"])
-    qs = queries()
+    ``control_record``), through the same comparison, on the data the
+    system serves (its module's ``data``); ``sizes`` as in ``run_cell``."""
+    _, cfg, trf = _setup(cell_name, sizes)
+    qs = queries(trf)
     drv = driver(trf)
-    raw = snb.generate(cfg["generator_scale"], seed)
+    raw = system(cfg).data(cfg, seed)
     t0 = time.perf_counter()
     record = drv.control_record(raw, trf, qs, seed)
     checks, notes = drv.check(record, raw, qs)

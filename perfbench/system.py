@@ -1,9 +1,15 @@
 """The system under test, built from a configuration file.
 
-The benchmark generates the raw arrays from the seed (``snb.generate``)
-and hands them to the port through ``build_store`` with the port's
-``ldbc_schema()``.  ``GOpt(store)`` runs on the card (``device=None``);
-the CPU tests pass ``device="cpu"``.
+A system module gives ``data(config, seed)``, the raw arrays it serves
+(made from the seed; the control and the reference are built on them
+too), ``build(config, seed, device)``, the system over them, and
+``CPU_SIZES``, the configuration keys that shrink it for the CPU tests.
+
+This one generates the raw arrays with the frozen generator
+(``snb.generate``) and hands them to the port through ``build_store`` with
+the port's ``ldbc_schema()``.  ``GOpt(store)`` runs on the card
+(``device=None``); the CPU tests pass ``device="cpu"``.  A system that
+serves other arrays in the same schema builds through ``build_with``.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ import dataclasses
 import time
 
 from perfbench import snb
+
+CPU_SIZES = {"generator_scale": 0.5}
 
 
 @dataclasses.dataclass
@@ -29,12 +37,23 @@ class System:
             torch.cuda.synchronize()
 
 
+def data(config: dict, seed: int) -> snb.RawGraph:
+    return snb.generate(config["generator_scale"], seed)
+
+
 def build(config: dict, seed: int, device: str | None) -> System:
+    return build_with(data, config, seed, device)
+
+
+def build_with(make_data, config: dict, seed: int,
+               device: str | None) -> System:
+    """The port's store over ``make_data(config, seed)`` and ``GOpt`` on
+    it (``generate_s``: making the data and the store)."""
     from repro_torch.core.gopt import GOpt
     from repro_torch.core.schema import EdgeTriple, ldbc_schema
     from repro_torch.graphdb.storage import build_store
     t0 = time.perf_counter()
-    raw = snb.generate(config["generator_scale"], seed)
+    raw = make_data(config, seed)
     # the port gets its own copies of everything it might write to; the
     # edge lists it only reads
     store = build_store(

@@ -1,11 +1,13 @@
 """A run's result line, its imports, and the controls.
 
-Each cell's driver runs a short window on the CPU at generator scale 0.5;
-the line must carry exactly the contract's keys, ``checks`` last.
+Each cell's driver runs a short window on the CPU at its system's
+``CPU_SIZES``; the line must carry exactly the contract's keys, ``checks``
+last.
 Nothing the run loads may be JAX or the JAX package (checked in a fresh
 process); the reference loads nothing of the port; without a card
 ``run.py`` exits non-zero and prints no result.  Each cell's control (the
-reference with one guarantee broken, from the cell's driver) and each
+reference with one guarantee broken, from the cell's driver, on the
+data the cell's system serves) and each
 fault planted under the timed path that the cell's driver can meet must
 come out not correct, and a failure other than the engine's guard must
 end the run.
@@ -18,16 +20,23 @@ import _paths  # noqa: F401
 import numpy as np
 import pytest
 
-from perfbench import bench, harness, snb
+from perfbench import bench, harness
 
-SF, SEED = 0.5, 5
+SEED = 5
 ROOT = _paths.ROOT
 CELLS = [w["name"] for w in bench.load()["workloads"]]
 
 
+def _sizes(cell):
+    """The cell's system's ``CPU_SIZES``."""
+    spec = bench.load()
+    cfg = bench.config(spec, bench.cell(spec, cell)["config"])
+    return harness.system(cfg).CPU_SIZES
+
+
 def _run(cell):
     return harness.run_cell(cell, SEED, 0.3, False, 0.0, device="cpu",
-                            sizes={"generator_scale": SF})
+                            sizes=_sizes(cell))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -41,6 +50,9 @@ def test_result_line_has_the_contract_keys_checks_last(cell):
     assert line["correct"] and line["attempted"] > 0
     assert set(line["metrics"]) == {
         m["name"] for m in bench.metrics(bench.load(), cell, trace=False)}
+    assert "latency_p99_ms" in line["metrics"]
+    assert 0 <= line["notes"]["latency_beyond_p99"] < \
+        line["notes"]["latency_samples"]
     assert {"wrong_answers", "failed_requests"} <= set(line["checks"])
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"}
@@ -102,12 +114,10 @@ def _traffic(cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell):
-    trf = _traffic(cell)
-    drv = harness.driver(trf)
-    raw = snb.generate(SF, SEED)
-    qs = harness.queries()
-    checks, _ = drv.check(drv.control_record(raw, trf, qs, SEED), raw, qs)
-    assert any(v > lim for _, v, lim in checks), checks
+    out = harness.run_control(cell, SEED, sizes=_sizes(cell))
+    assert any(c["value"] > c["limit"] for c in out["checks"].values()), \
+        out["checks"]
+    assert not out["correct"]
 
 
 def _alter_answers(monkeypatch):

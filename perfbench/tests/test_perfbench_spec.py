@@ -59,17 +59,24 @@ def test_harness_finds_the_cell_its_config_mix_and_metrics(cell):
     w = bench.cell(SPEC, cell)
     cfg = bench.config(SPEC, w["config"])
     trf = bench.traffic(w["traffic"])
-    assert cfg["generator_scale"] > 0 and trf["queries"]
+    sut = harness.system(cfg)
+    for fn in ("build", "data"):
+        assert callable(getattr(sut, fn))
+    assert sut.CPU_SIZES and set(sut.CPU_SIZES) <= set(cfg) | set(trf)
+    if sut.__name__ == "perfbench.system":
+        assert cfg["generator_scale"] > 0
+    assert trf["queries"]
     e2e = bench.metrics(SPEC, cell, trace=False)
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2
     assert bench.metrics(SPEC, cell, trace=True)
     for m in e2e + bench.metrics(SPEC, cell, trace=True):
         assert callable(bench.reader(m["name"]))
-    qs = harness.queries()
+    qfile = bench.BENCH_DIR / trf.get("queries_file", "queries.json")
+    assert qfile.resolve().is_relative_to(bench.BENCH_DIR)
+    qs = harness.queries(trf)
     for name in trf["queries"]:
         assert name in qs
-    assert callable(bench.module(cfg.get("system", "system")).build)
     drv = harness.driver(trf)
     for fn in ("run", "check", "control_record"):
         assert callable(getattr(drv, fn))
